@@ -1,0 +1,98 @@
+"""Build and load the CUDA kernels under csrc/ at first use.
+
+Each `csrc/<name>.cu` is compiled by nvcc into its own shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds) and
+loaded with ctypes. Libraries go to `_build/` beside this file, named by a
+hash of the source and the flags, so an edited source builds anew and an
+unchanged one is reused. A file lock serialises builds between processes.
+
+Nothing here runs at import: the first launch of a kernel on a CUDA tensor
+calls `load`. A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+# -fmad=false keeps every multiply and add separately rounded, as on the
+# CPU reference; no fast-math flags (powf, division and sqrt stay IEEE).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, /usr/local/cuda or PATH; raises when absent."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put it on PATH); "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def nvcc_version() -> str:
+    return subprocess.run([nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu → ctypes library."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    out = _lib_path(name)
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not out.exists():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+                        f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+                BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                                   "ptxas": proc.stderr.strip()}
+            else:
+                BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "cached"})
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(str(out))
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        msg = lib.rt_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: cudaError {err} ({msg})")

@@ -1,0 +1,568 @@
+"""Raytracing megakernel: host packing, CUDA wrapper and plain version
+(port of raytracing_cuda_tpu/render/pallas_rt.py).
+
+The TPU kernel (`pallas_rt._make_kernel`, launched at pallas_rt.py:1151)
+renders (48, 128) pixel tiles with tile-level skips. On the GPU the kernel
+(csrc/raytrace.cu) goes back to the reference's design, one thread per pixel
+(kernel.cu:228-259), each thread walking all scene rows and leaving its own
+bounce loop when its ray dies.
+
+Host side: the scene is packed into one (N_OBJ_PAD, N_CHANNELS) float32
+coefficient table (slot 0 = sea plane, then padded triangle clusters, then
+padded sphere clusters) and a (N_PARAMS,) float32 params vector — the same
+channel and slot maps as the JAX package, minus the TPU's middle axis.
+
+`raytrace_planes` dispatches on the device of its inputs: a CPU tensor runs
+the plain PyTorch version `raytrace_planes_torch`, a CUDA tensor launches
+the kernel (or raises). Both return 7 (H, W) float32 planes: hit-path RGB,
+miss weight, miss direction xyz.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracing_cuda_tpu_torch.core.math3d import dot3
+from raytracing_cuda_tpu_torch.core.types import CameraRays, Lights, Scene
+
+f32 = torch.float32
+
+MAX_DEPTH = 4        # kernel.cu:11
+BIG = 1e30           # finite stand-in for +inf
+
+# --- coefficient-table channel map (pallas_rt.py:61-83) ---
+C_COL = 0            # 0-2   color rgb
+C_SHINE = 3
+C_SPEC = 4           # specular exponent
+C_KR = 5             # mirror coefficient
+C_FLAGS = 6          # islight*2 + issph
+C_UNUSED7 = 7
+C_CENTER = 8         # 8-10  sphere center
+C_NORMAL = 11        # 11-13 static normal (plane/tris); sphere center
+C_POS2 = 14          # sphere |pos|^2
+C_R2 = 15            # sphere r^2 (pad rows: -1, never accepted)
+C_CDET = 16          # 16-18 tri e2×e1
+C_AU = 19            # 19-21 tri v0×e2
+C_BU = 22            # 22-24 tri e2
+C_AV = 25            # 25-27 tri e1×v0
+C_BV = 28            # 28-30 tri e1
+C_N = 31             # 31-33 tri e1×e2
+C_V0N = 34           # tri v0·n
+C_VALID = 35         # 1 for real rows (never read)
+C_BLOCKS = 36        # occludes shadow rays (non-emissive), kernel.cu:188-193
+C_GIDX = 37          # reference object index (tie-break key)
+N_CHANNELS = 40
+
+# --- params vector layout (pallas_rt.py:85-104) ---
+P_CAMPOS = 0         # 0-2
+P_LD = 3             # 3-5 frustum corners
+P_RD = 6
+P_LU = 9
+P_RU = 12
+P_LPOS0 = 15         # 15-17 light 0 position
+P_LPOS1 = 18
+P_LCOL0 = 21         # 21-23
+P_LCOL1 = 24
+P_LINT = 27          # 27-28 intensities
+P_AMBIENT = 29       # 29-31
+P_SEAY = 32          # sea plane height
+P_ROW0 = 33          # global row offset of a band
+P_CLUSTERS = 36      # MAX_CLUSTERS x (cx, cy, cz, r) cluster bounds
+MAX_CLUSTERS = 24
+N_PARAMS = P_CLUSTERS + 4 * MAX_CLUSTERS
+
+ATTR_CHANNELS = (C_COL, C_COL + 1, C_COL + 2, C_SHINE, C_SPEC, C_KR,
+                 C_FLAGS, C_NORMAL, C_NORMAL + 1, C_NORMAL + 2)
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def tri_cluster_pads(T: int, tri_clusters) -> tuple:
+    """Padded row count per triangle cluster (each a multiple of 8)."""
+    if not tri_clusters:
+        tri_clusters = (T,)
+    if sum(tri_clusters) != T:
+        raise ValueError(f"tri_clusters {tri_clusters} do not sum to {T}")
+    return tuple(_round_up(c, 8) for c in tri_clusters)
+
+
+def sph_cluster_norm(S: int, sph_clusters):
+    """((count, occludes), ...) or None → (counts, pads, occludes) tuples."""
+    if not sph_clusters:
+        sph_clusters = ((S, True),)
+    counts = tuple(c for c, _ in sph_clusters)
+    if sum(counts) != S:
+        raise ValueError(f"sph_clusters {sph_clusters} do not sum to {S}")
+    return (counts, tuple(_round_up(c, 8) for c in counts),
+            tuple(bool(o) for _, o in sph_clusters))
+
+
+def tri_sub_partition(tri_clusters, t_subs):
+    """Flat sub-cluster triangle counts (t_subs[k] splits cluster k's bound
+    into that many equal consecutive sub-bounds)."""
+    if not t_subs:
+        return tuple(tri_clusters)
+    if len(t_subs) != len(tri_clusters):
+        raise ValueError(f"t_subs {t_subs} must have one entry per tri "
+                         f"cluster {tri_clusters}")
+    out = []
+    for cnt, m in zip(tri_clusters, t_subs):
+        if cnt % m:
+            raise ValueError(f"t_subs {m} must divide cluster count {cnt}")
+        out.extend([cnt // m] * m)
+    return tuple(out)
+
+
+def _col(v):
+    v = v.to(f32)
+    return v[:, None] if v.ndim == 1 else v
+
+
+def _cross_fused(a, b):
+    """a × b with each component rounded once as fma(a_i, b_j, -(a_j b_i)).
+
+    This is the form XLA's CPU backend contracts jnp.cross into; the table
+    then equals the JAX package's bit for bit (plain f32 products differ by
+    up to 15 ulp where the two products cancel). The f64 product is exact;
+    the f64 subtraction is exact unless the exponents lie > 29 bits apart.
+    """
+    a64, b64 = a.double(), b.double()
+
+    def comp(i, j):
+        return (a64[:, i] * b64[:, j] - (a[:, j] * b[:, i]).double()).to(f32)
+
+    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
+
+
+def pack_scene(scene: Scene, tri_clusters=None, sph_clusters=None):
+    """Build the (N_OBJ_PAD, N_CHANNELS) float32 coefficient table.
+
+    Slot 0 is the sea plane, then the triangle clusters, then the sphere
+    clusters, each padded to a multiple of 8 rows; the total is padded to a
+    multiple of 8. Pad rows carry gidx 1e9, r² = -1 (the sphere accept can
+    never fire, so no phantom hits at the origin) and all-zero triangle
+    coefficients (det = 0, rejected).
+    """
+    T, S = scene.n_triangles, scene.n_spheres
+    pads = tri_cluster_pads(T, tri_clusters)
+    t_pad = sum(pads)
+    s_counts, s_pads, _ = sph_cluster_norm(S, sph_clusters)
+    s_pad = sum(s_pads)
+    n_pad = _round_up(1 + t_pad + s_pad, 8)
+
+    def zeros(n, c):
+        return torch.zeros((n, c), dtype=f32)
+
+    v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
+    n = _cross_fused(e1, e2)
+    tg = scene.tri_gidx.long()
+    ones_t = torch.ones((T, 1), dtype=f32)
+    tri_rows = torch.cat([
+        _col(scene.color[tg]), _col(scene.shine[tg]),
+        _col(scene.specular[tg]), _col(scene.mirror[tg]),
+        zeros(T, 2),                                   # flags, unused
+        zeros(T, 3), _col(scene.static_normal[tg]),    # center, normal
+        zeros(T, 2),                                   # pos2, r2
+        _cross_fused(e2, e1), _cross_fused(v0, e2), e2,
+        _cross_fused(e1, v0), e1, n,
+        _col(dot3(v0, n)),
+        ones_t, ones_t,                                # valid, blocks
+        _col(tg.to(f32)), zeros(T, N_CHANNELS - C_GIDX - 1),
+    ], dim=1)
+
+    sg = scene.sph_gidx.long()
+    pos = scene.sph_pos
+    is_light = _col(scene.is_light[sg])
+    ones_s = torch.ones((S, 1), dtype=f32)
+    sph_rows = torch.cat([
+        _col(scene.color[sg]), _col(scene.shine[sg]),
+        _col(scene.specular[sg]), _col(scene.mirror[sg]),
+        2.0 * is_light + 1.0, zeros(S, 1),
+        pos, pos,                                      # center; normal = center
+        _col(dot3(pos, pos)), _col(scene.sph_r * scene.sph_r),
+        zeros(S, 19),                                  # tri coefficients
+        ones_s, 1.0 - is_light,
+        _col(sg.to(f32)), zeros(S, N_CHANNELS - C_GIDX - 1),
+    ], dim=1)
+
+    pl_row = torch.cat([
+        _col(scene.color[0:1]), _col(scene.shine[0:1]),
+        _col(scene.specular[0:1]), _col(scene.mirror[0:1]), zeros(1, 2),
+        zeros(1, 3), _col(scene.plane_normal[None, :]),
+        zeros(1, 21),
+        torch.ones((1, 2), dtype=f32),                 # valid, blocks
+        zeros(1, N_CHANNELS - C_GIDX),                 # gidx = 0
+    ], dim=1)
+
+    pad_row = zeros(1, N_CHANNELS)
+    pad_row[0, C_GIDX] = 1e9
+    pad_row[0, C_R2] = -1.0
+    parts = [pl_row]
+    off = 0
+    for cnt, pad in zip(list(tri_clusters) if tri_clusters else [T], pads):
+        parts += [tri_rows[off:off + cnt], pad_row.expand(pad - cnt, -1)]
+        off += cnt
+    off = 0
+    for cnt, pad in zip(s_counts, s_pads):
+        parts += [sph_rows[off:off + cnt], pad_row.expand(pad - cnt, -1)]
+        off += cnt
+    parts.append(pad_row.expand(n_pad - 1 - t_pad - s_pad, -1))
+    return torch.cat(parts, dim=0)
+
+
+def cluster_bounds(scene: Scene, tri_clusters=None, sph_clusters=None,
+                   t_subs=None):
+    """Bounding sphere (cx, cy, cz, r) per cull bound → (K_sub + K_sph, 4).
+
+    AABB center of the cluster's vertices (or sphere centers), radius to the
+    farthest vertex / sphere surface, * 1.001 + 0.01 float slack.
+    """
+    counts = (list(tri_sub_partition(tri_clusters, t_subs))
+              if tri_clusters else [scene.n_triangles])
+    v0 = scene.tri_v0
+    v1 = v0 + scene.tri_e1
+    v2 = v0 + scene.tri_e2
+    out = []
+    off = 0
+    for cnt in counts:
+        vs = torch.cat([v0[off:off + cnt], v1[off:off + cnt],
+                        v2[off:off + cnt]], dim=0)
+        c = (vs.amin(0) + vs.amax(0)) * 0.5
+        q = (vs - c) ** 2
+        r = torch.sqrt((q[:, 0] + q[:, 1] + q[:, 2]).amax()) * 1.001 + 0.01
+        out.append(torch.cat([c, r[None]]))
+        off += cnt
+    s_counts, _, _ = sph_cluster_norm(scene.n_spheres, sph_clusters)
+    off = 0
+    for cnt in s_counts:
+        p = scene.sph_pos[off:off + cnt]
+        sr = scene.sph_r[off:off + cnt]
+        c = (p.amin(0) + p.amax(0)) * 0.5
+        q = (p - c) ** 2
+        r = (torch.sqrt(q[:, 0] + q[:, 1] + q[:, 2]) + sr).amax() * 1.001 + 0.01
+        out.append(torch.cat([c, r[None]]))
+        off += cnt
+    return torch.stack(out)
+
+
+def pack_params(cam_rays: CameraRays, lights: Lights, ambient, sea_y,
+                row0=0):
+    """The (N_PARAMS,) float32 params vector (cluster slots left zero)."""
+    p = torch.zeros((N_PARAMS,), dtype=f32)
+    segs = [
+        (P_CAMPOS, cam_rays.pos), (P_LD, cam_rays.LD), (P_RD, cam_rays.RD),
+        (P_LU, cam_rays.LU), (P_RU, cam_rays.RU),
+        (P_LPOS0, lights.pos[0]), (P_LPOS1, lights.pos[1]),
+        (P_LCOL0, lights.color[0]), (P_LCOL1, lights.color[1]),
+        (P_LINT, lights.intensity), (P_AMBIENT, ambient),
+        (P_SEAY, sea_y), (P_ROW0, row0),
+    ]
+    for off, v in segs:
+        v = torch.as_tensor(v, dtype=f32).reshape(-1)
+        p[off:off + v.numel()] = v
+    return p
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _norm3(x, y, z):
+    # guarded: zero vectors stay finite (pallas_rt.py:400-403)
+    inv = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    return x * inv, y * inv, z * inv
+
+
+def _dot(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def _ch(C, c):
+    """Channel c of the row table as a (1, R) row for (n, R) broadcasting."""
+    return C[None, :, c]
+
+
+def _tri_t(C, ox, oy, oz, dx, dy, dz, mx, my, mz):
+    """Triangle t (n, R), BIG where rejected (pallas_rt._tri_t)."""
+    det = _dot(dx, dy, dz, _ch(C, C_CDET), _ch(C, C_CDET + 1),
+               _ch(C, C_CDET + 2))
+    u_det = (_dot(dx, dy, dz, _ch(C, C_AU), _ch(C, C_AU + 1), _ch(C, C_AU + 2))
+             + _dot(mx, my, mz, _ch(C, C_BU), _ch(C, C_BU + 1),
+                    _ch(C, C_BU + 2)))
+    v_det = (_dot(dx, dy, dz, _ch(C, C_AV), _ch(C, C_AV + 1), _ch(C, C_AV + 2))
+             - _dot(mx, my, mz, _ch(C, C_BV), _ch(C, C_BV + 1),
+                    _ch(C, C_BV + 2)))
+    t_det = (_dot(ox, oy, oz, _ch(C, C_N), _ch(C, C_N + 1), _ch(C, C_N + 2))
+             - _ch(C, C_V0N))
+    acc = torch.minimum(torch.minimum(det - 0.001, t_det),
+                        torch.minimum(torch.minimum(u_det, v_det),
+                                      det - u_det - v_det))
+    hit = acc >= 0
+    t = t_det / torch.where(hit, det, torch.ones_like(det))
+    return torch.where(hit, t, torch.full_like(t, BIG))
+
+
+def _sph_t(C, ox, oy, oz, dx, dy, dz):
+    """Sphere t (n, R), BIG where rejected (pallas_rt._sph_t)."""
+    px, py, pz = _ch(C, C_CENTER), _ch(C, C_CENTER + 1), _ch(C, C_CENTER + 2)
+    od = _dot(ox, oy, oz, dx, dy, dz)
+    oo = _dot(ox, oy, oz, ox, oy, oz)
+    tca = _dot(dx, dy, dz, px, py, pz) - od
+    ll = _ch(C, C_POS2) - 2.0 * _dot(ox, oy, oz, px, py, pz) + oo
+    d2 = ll - tca * tca
+    r2 = _ch(C, C_R2)
+    acc = torch.minimum(tca, torch.minimum(r2 - d2, d2 + 0.01))
+    t = tca - torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    return torch.where(acc > 0, t, torch.full_like(t, BIG))
+
+
+def _plane_t(oy, dy, sea_y):
+    """Sea-plane t, BIG where missed (kernel.cu:71-94)."""
+    t = (sea_y - oy) / dy
+    hit = (dy * dy > 0.00001) & (t >= 0)
+    return torch.where(hit, t, torch.full_like(t, BIG))
+
+
+def _occluded(Ct, Cs, blocks, ox, oy, oz, dx, dy, dz, sdist, sea_y):
+    """Any triangle, blocking sphere or the plane closer than sdist → bool."""
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    col = lambda v: v[:, None]
+    occ = _plane_t(oy, dy, sea_y) < sdist
+    if Ct.shape[0]:
+        t = _tri_t(Ct, *map(col, (ox, oy, oz, dx, dy, dz, mx, my, mz)))
+        occ = occ | (t.amin(1) < sdist)
+    if Cs.shape[0]:
+        t = _sph_t(Cs, *map(col, (ox, oy, oz, dx, dy, dz)))
+        t = torch.where(blocks[None, :], t, torch.full_like(t, BIG))
+        occ = occ | (t.amin(1) < sdist)
+    return occ
+
+
+def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl):
+    """Trace primary rays (dx, dy, dz) of one pixel chunk into out[:, sl]."""
+    n = dx.shape[0]
+    dev = dx.device
+    Ct = coef[1:1 + n_tri]
+    Cs = coef[1 + n_tri:1 + n_tri + n_sph]
+    blocks = Cs[:, C_BLOCKS] > 0
+    gidx = torch.cat([torch.zeros(1, dtype=f32, device=dev),
+                      Ct[:, C_GIDX], Cs[:, C_GIDX]])
+    attr_rows = coef[:1 + n_tri + n_sph][:, list(ATTR_CHANNELS)]
+    sea_y = P[P_SEAY]
+    ox = P[P_CAMPOS].expand(n).clone()
+    oy = P[P_CAMPOS + 1].expand(n).clone()
+    oz = P[P_CAMPOS + 2].expand(n).clone()
+    thr = torch.ones(n, dtype=f32, device=dev)
+    acc = torch.zeros((3, n), dtype=f32, device=dev)
+    mw = torch.zeros(n, dtype=f32, device=dev)
+    mdir = torch.stack([dx, dy, dz])
+    live = torch.arange(n, device=dev)
+    col = lambda v: v[:, None]
+
+    for _ in range(MAX_DEPTH + 1):
+        if live.numel() == 0:
+            break
+        lox, loy, loz = ox[live], oy[live], oz[live]
+        ldx, ldy, ldz = dx[live], dy[live], dz[live]
+        lthr = thr[live]
+        mx = loy * ldz - loz * ldy
+        my = loz * ldx - lox * ldz
+        mz = lox * ldy - loy * ldx
+
+        # nearest hit: lexicographic (t, gidx) minimum over plane + rows
+        cands = [col(_plane_t(loy, ldy, sea_y))]
+        if n_tri:
+            cands.append(_tri_t(Ct, *map(col, (lox, loy, loz, ldx, ldy, ldz,
+                                               mx, my, mz))))
+        if n_sph:
+            cands.append(_sph_t(Cs, *map(col, (lox, loy, loz, ldx, ldy, ldz))))
+        t_all = torch.cat(cands, dim=1)
+        t_min = t_all.amin(1)
+        g = torch.where(t_all == t_min[:, None], gidx[None, :],
+                        torch.full_like(t_all, 2e9))
+        attrs = attr_rows[g.argmin(1)]
+        hit = t_min < BIG * 0.5
+
+        # misses record (throughput, direction) for the deferred sky
+        miss = live[~hit]
+        mw[miss] = thr[miss]
+        mdir[:, miss] = torch.stack([dx[miss], dy[miss], dz[miss]])
+
+        sel = hit.nonzero().squeeze(1)
+        live = live[sel]
+        t = t_min[sel]
+        lox, loy, loz, ldx, ldy, ldz, lthr = (
+            v[sel] for v in (lox, loy, loz, ldx, ldy, ldz, lthr))
+        (colr, colg, colb, shine, spec_e, kr, flags,
+         nvx, nvy, nvz) = attrs[sel].unbind(1)
+        hx, hy, hz = lox + ldx * t, loy + ldy * t, loz + ldz * t
+        em = flags >= 2.0
+        is_sph = (flags - 2.0 * em.to(f32)) > 0
+        snx, sny, snz = _norm3(hx - nvx, hy - nvy, hz - nvz)
+        nx = torch.where(is_sph, snx, nvx)
+        ny = torch.where(is_sph, sny, nvy)
+        nz = torch.where(is_sph, snz, nvz)
+
+        # emissive hits add their color and end the ray
+        lit = live[em]
+        acc[:, lit] += lthr[em] * torch.stack([colr[em], colg[em], colb[em]])
+
+        sh = (~em).nonzero().squeeze(1)
+        live = live[sh]
+        (ox_, oy_, oz_, dx_, dy_, dz_, thr_, hx, hy, hz, nx, ny, nz, colr,
+         colg, colb, shine, spec_e, kr) = (
+            v[sh] for v in (lox, loy, loz, ldx, ldy, ldz, lthr, hx, hy, hz,
+                            nx, ny, nz, colr, colg, colb, shine, spec_e, kr))
+
+        phr = colr * P[P_AMBIENT]
+        phg = colg * P[P_AMBIENT + 1]
+        phb = colb * P[P_AMBIENT + 2]
+        for li, (pb, cb) in enumerate(((P_LPOS0, P_LCOL0),
+                                       (P_LPOS1, P_LCOL1))):
+            lvx, lvy, lvz = P[pb] - hx, P[pb + 1] - hy, P[pb + 2] - hz
+            sdist = torch.sqrt(lvx * lvx + lvy * lvy + lvz * lvz)
+            inv = 1.0 / sdist
+            sdx, sdy, sdz = lvx * inv, lvy * inv, lvz * inv
+            angle = torch.clamp(nx * sdx + ny * sdy + nz * sdz, min=0.0)
+            need = (angle > 0).nonzero().squeeze(1)
+            if need.numel():
+                q = lambda v: v[need]
+                occ = _occluded(Ct, Cs, blocks,
+                                q(hx) + q(sdx) * 0.001, q(hy) + q(sdy) * 0.001,
+                                q(hz) + q(sdz) * 0.001, q(sdx), q(sdy), q(sdz),
+                                q(sdist), sea_y)
+                angle = angle.index_put((need[occ],),
+                                        torch.zeros((), dtype=f32, device=dev))
+            aint = angle * P[P_LINT + li]
+            phr = phr + colr * P[cb] * aint
+            phg = phg + colg * P[cb + 1] * aint
+            phb = phb + colb * P[cb + 2] * aint
+            # Phong specular (kernel.cu:198-205): reflect -sdir
+            ldn = -(sdx * nx + sdy * ny + sdz * nz)
+            spx, spy, spz = _norm3(-sdx - 2.0 * ldn * nx, -sdy - 2.0 * ldn * ny,
+                                   -sdz - 2.0 * ldn * nz)
+            sbase = torch.clamp(-(spx * dx_ + spy * dy_ + spz * dz_), min=0.0)
+            # pow(s, e) as exp2(e·log2 s); pow(0, e) is 0 for e > 0, 1 at e = 0
+            spec_pow = torch.where(
+                sbase > 0,
+                torch.exp2(spec_e * torch.log2(torch.clamp(sbase, min=1e-30))),
+                torch.where(spec_e > 0, 0.0, 1.0))
+            spec = torch.where(shine > 0, spec_pow * shine * angle, 0.0)
+            phr = phr + spec
+            phg = phg + spec
+            phb = phb + spec
+
+        w = thr_ * (1.0 - kr)
+        acc[:, live] += torch.stack([w * phr, w * phg, w * phb])
+
+        # mirror bounce (kernel.cu:209-218); every other ray dies
+        ddn = dx_ * nx + dy_ * ny + dz_ * nz
+        rx, ry, rz = _norm3(dx_ - 2.0 * ddn * nx, dy_ - 2.0 * ddn * ny,
+                            dz_ - 2.0 * ddn * nz)
+        b = (kr > 0).nonzero().squeeze(1)
+        live = live[b]
+        ox[live] = hx[b] + rx[b] * 0.001
+        oy[live] = hy[b] + ry[b] * 0.001
+        oz[live] = hz[b] + rz[b] * 0.001
+        dx[live], dy[live], dz[live] = rx[b], ry[b], rz[b]
+        thr[live] = thr_[b] * kr[b]
+
+    out[0:3, sl] = acc
+    out[3, sl] = mw
+    out[4:7, sl] = mdir
+
+
+def primary_rays(params, H: int, W: int, row0: int = 0, total_h=None):
+    """Frustum-corner lerp (kernel.cu:244-253) → unit directions, 3 x (H*W)."""
+    total_h = H if total_h is None else total_h
+    dev = params.device
+    P = params
+    px = (torch.arange(W, device=dev, dtype=f32)
+          * float(np.float32(1.0 / (W - 1))))[None, :]
+    py = ((torch.arange(H, device=dev, dtype=f32) + float(row0))
+          * float(np.float32(1.0 / (total_h - 1))))[:, None]
+    dirs = []
+    for k in range(3):
+        vd = P[P_LD + k] + (P[P_RD + k] - P[P_LD + k]) * px
+        vu = P[P_LU + k] + (P[P_RU + k] - P[P_LU + k]) * px
+        dirs.append(vu - (vu - vd) * py)
+    return tuple(v.reshape(-1) for v in _norm3(*dirs))
+
+
+def raytrace_planes_torch(coef, params, H: int, W: int, n_tri_rows: int,
+                          n_sph_rows: int, row0: int = 0, total_h=None,
+                          chunk: int = 65536):
+    """Plain PyTorch megakernel: 7 (H, W) float32 planes, chunked over pixels.
+
+    The same math as csrc/raytrace.cu (and the TPU kernel minus its output-
+    identical culls): per chunk of pixels, up to MAX_DEPTH + 1 levels over
+    the plane and all rows, with the rays still alive compacted each level.
+    """
+    dx, dy, dz = primary_rays(params, H, W, row0, total_h)
+    out = torch.empty((7, H * W), dtype=f32, device=coef.device)
+    for s in range(0, H * W, chunk):
+        sl = slice(s, min(s + chunk, H * W))
+        _trace_chunk(coef, params, n_tri_rows, n_sph_rows, dx[sl].clone(),
+                     dy[sl].clone(), dz[sl].clone(), out, sl)
+    return tuple(out.reshape(7, H, W))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _launch(coef, params, H, W, n_tri_rows, n_sph_rows, row0, total_h):
+    from raytracing_cuda_tpu_torch import _build
+
+    for name, t in (("coef", coef), ("params", params)):
+        if t.dtype != f32 or not t.is_contiguous() or t.device != coef.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                             f"{coef.device}")
+    n_rows = 1 + n_tri_rows + n_sph_rows
+    if (coef.ndim != 2 or coef.shape[1] != N_CHANNELS
+            or coef.shape[0] < n_rows or params.shape != (N_PARAMS,)):
+        raise ValueError(f"bad shapes coef {tuple(coef.shape)} params "
+                         f"{tuple(params.shape)} for {n_rows} rows")
+    lib = _build.load("raytrace")
+    fn = lib.rt_raytrace_planes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((7, H, W), dtype=f32, device=coef.device)
+    stream = torch.cuda.current_stream(coef.device).cuda_stream
+    err = fn(coef.data_ptr(), n_rows, 1 + n_tri_rows, n_rows,
+             params.data_ptr(), out.data_ptr(), H, W, row0,
+             float(np.float32(1.0 / (W - 1))),
+             float(np.float32(1.0 / (total_h - 1))), stream)
+    _build.check(lib, err, "raytrace kernel launch")
+    raytrace_planes.launches += 1
+    return tuple(out)
+
+
+def raytrace_planes(coef, params, H: int, W: int, n_tri_rows: int,
+                    n_sph_rows: int, row0: int = 0, total_h=None):
+    """Megakernel → 7 (H, W) float32 planes (r, g, b, miss weight, miss dir).
+
+    CPU tensors run raytrace_planes_torch; CUDA tensors launch
+    csrc/raytrace.cu (replaces pallas_rt.py:1151) and count the launch.
+    row0/total_h place an H-row band inside a total_h-row frame.
+    """
+    total_h = H if total_h is None else total_h
+    if coef.device.type == "cpu":
+        return raytrace_planes_torch(coef, params, H, W, n_tri_rows,
+                                     n_sph_rows, row0, total_h)
+    if coef.device.type != "cuda":
+        raise ValueError(f"no raytrace kernel for device {coef.device}")
+    return _launch(coef, params, H, W, n_tri_rows, n_sph_rows, row0, total_h)
+
+
+raytrace_planes.launches = 0

@@ -1,0 +1,143 @@
+"""FXAA anti-aliasing post-pass (port of raytracing_cuda_tpu/render/fxaa.py).
+
+The reference's antialiasing kernel (kernel.cu:262-403) on the quantized
+uint8 frame: Rec.709 luminance, a contrast skip, a 12-tap blend factor
+through smoothstep, and a horizontal/vertical pick of the ±1 neighbour;
+image-border pixels pass through.
+
+`fxaa` dispatches on the device of its input: a CPU tensor runs the plain
+PyTorch version `fxaa_torch` (the JAX package's XLA stencil, `fxaa` /
+`fxaa_ext` at row0 = 0), a CUDA tensor launches csrc/fxaa.cu (replaces
+the Pallas kernel launched at fxaa.py:265) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracing_cuda_tpu_torch.core.math3d import true_div
+
+f32 = torch.float32
+
+CONTRAST_THRESHOLD = 0.0312   # kernel.cu:289
+RELATIVE_THRESHOLD = 0.063    # kernel.cu:290
+LUMA_WEIGHTS = (0.2126729, 0.7151522, 0.0721750)  # Rec.709, kernel.cu:293
+
+
+_C1, _C2, _C3 = (float(np.float32(c)) for c in LUMA_WEIGHTS)
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) in float32: one rounding of a*b + c (computed in f64,
+    where the product and, for 0..255 pixel values, the sum are exact)."""
+    return (a.double() * b + c.double()).float()
+
+
+def luminance(img_f32: torch.Tensor) -> torch.Tensor:
+    """min(255, r*c1 + g*c2 + b*c3) / 255 (kernel.cu:293-298), rounded as
+    XLA compiles the JAX package's stencil — the arithmetic that wrote the
+    golden frames: min(255, fma(b, c3, fma(r, c1, g*c2))) * f32(1/255).
+
+    The Pallas source spells a separately rounded sum and a true divide
+    (fxaa.py:173); that form resolves a few luminance-comparison ties the
+    other way and misses the 96x160 classic golden (RMSE 0.0029 > 2e-3,
+    as JAX's own stencil does when run eagerly), while the compiled form
+    reproduces it.
+    """
+    r, g, b = img_f32[..., 0], img_f32[..., 1], img_f32[..., 2]
+    lum = _fma(b, _C3, _fma(r, _C1, g * _C2))
+    return torch.clamp(lum, max=255.0) * _INV_255
+
+
+def fxaa_torch(image: torch.Tensor) -> torch.Tensor:
+    """Plain FXAA on a (H, W, 3) uint8 frame → (H, W, 3) uint8."""
+    h, w = image.shape[0], image.shape[1]
+    img = image.to(f32)
+    # edge-pad by one pixel on each side (only border pixels, which pass
+    # through, ever read the padding)
+    ys = torch.clamp(torch.arange(-1, h + 1, device=image.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-1, w + 1, device=image.device), 0, w - 1)
+    ip = img[ys][:, xs]                              # (h+2, w+2, 3)
+    lp = luminance(ip)
+
+    def tap(a, dy, dx):
+        return a[dy:dy + h, dx:dx + w]
+
+    lm, ln, ls = tap(lp, 1, 1), tap(lp, 0, 1), tap(lp, 2, 1)
+    le, lw = tap(lp, 1, 2), tap(lp, 1, 0)
+    lne, lnw, lse, lsw = tap(lp, 0, 2), tap(lp, 0, 0), tap(lp, 2, 2), tap(lp, 2, 0)
+    mx, mn = torch.maximum, torch.minimum
+
+    # contrast + skip threshold (kernel.cu:337-354)
+    high = mx(mx(mx(mx(le, lw), ln), ls), lm)
+    low = mn(mn(mn(mn(le, lw), ln), ls), lm)
+    contrast = high - low
+    skip = contrast < torch.clamp(RELATIVE_THRESHOLD * high,
+                                  min=CONTRAST_THRESHOLD)
+
+    # blend factor: 12-tap neighbourhood filter + smoothstep (kernel.cu:364-375)
+    filt = true_div(2.0 * (le + lw + ls + ln) + lne + lnw + lse + lsw, 12.0)
+    filt = torch.clamp(torch.abs(filt - lm) / contrast, max=1.0)
+    blend = filt * filt * (3.0 - 2.0 * filt)
+
+    # edge direction from second-derivative taps (kernel.cu:377-392)
+    hor = (torch.abs(ln + ls - 2.0 * lm) * 2.0
+           + torch.abs(lne + lse - 2.0 * le) + torch.abs(lnw + lsw - 2.0 * lw))
+    ver = (torch.abs(le + lw - 2.0 * lm) * 2.0
+           + torch.abs(lne + lnw - 2.0 * ln) + torch.abs(lse + lsw - 2.0 * ls))
+    is_hor = (hor >= ver)[..., None]
+    pick_n = (torch.abs(ln - lm) >= torch.abs(ls - lm))[..., None]
+    pick_e = (torch.abs(le - lm) >= torch.abs(lw - lm))[..., None]
+    neighbor = torch.where(
+        is_hor, torch.where(pick_n, tap(ip, 0, 1), tap(ip, 2, 1)),
+        torch.where(pick_e, tap(ip, 1, 2), tap(ip, 1, 0)))
+
+    b = blend[..., None]
+    out = torch.clamp(neighbor * b + img * (1.0 - b), 0.0, 255.0).to(torch.uint8)
+
+    r = torch.arange(h, device=image.device)[:, None]
+    c = torch.arange(w, device=image.device)[None, :]
+    interior = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1)
+    return torch.where((interior & ~skip)[..., None], out, image)
+
+
+def _launch(image: torch.Tensor) -> torch.Tensor:
+    from raytracing_cuda_tpu_torch import _build
+
+    if (image.dtype != torch.uint8 or image.ndim != 3 or image.shape[2] != 3
+            or not image.is_contiguous()):
+        raise ValueError(f"fxaa takes a contiguous (H, W, 3) uint8 frame, "
+                         f"got {image.dtype} {tuple(image.shape)}")
+    lib = _build.load("fxaa")
+    fn = lib.rt_fxaa
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(image)
+    stream = torch.cuda.current_stream(image.device).cuda_stream
+    err = fn(image.data_ptr(), out.data_ptr(), image.shape[0], image.shape[1],
+             stream)
+    _build.check(lib, err, "fxaa kernel launch")
+    fxaa.launches += 1
+    return out
+
+
+def fxaa(image: torch.Tensor) -> torch.Tensor:
+    """FXAA on a full (H, W, 3) uint8 frame → (H, W, 3) uint8."""
+    if image.device.type == "cpu":
+        return fxaa_torch(image)
+    if image.device.type != "cuda":
+        raise ValueError(f"no fxaa kernel for device {image.device}")
+    return _launch(image)
+
+
+fxaa.launches = 0
+
+
+def apply_fxaa(image: torch.Tensor, enabled: bool) -> torch.Tensor:
+    """FXAA with the on/off toggle (kernel.cu:275-278 passthrough)."""
+    return fxaa(image) if enabled else image

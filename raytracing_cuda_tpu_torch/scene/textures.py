@@ -1,0 +1,131 @@
+"""Sky panoramas: procedural generation, packing and the flat pair lookup
+(port of the flat part of raytracing_cuda_tpu/scene/textures.py).
+
+The reference binds four equirectangular panoramas (morning/day/evening/
+night, scene.cpp:626-632) as point-sampled CUDA textures and blends all four
+per sky ray with truncating uchar4 arithmetic (kernel.cu:156-163,
+structs.h:86-91). The weights are uniform per frame and at most two are
+nonzero, so the four panoramas are packed once into a static (4, H*W) int32
+stack and each miss ray fetches at most two texels and blends them with the
+same truncation. On a GPU the per-pixel gather is exact and cheap, so the
+JAX package's grouped resolve (one gather per pixel group, a TPU gather
+workaround) has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from raytracing_cuda_tpu_torch.core.math3d import PI, true_div
+from raytracing_cuda_tpu_torch.core.types import SkyTextures
+
+_HALF_PI = float(PI / np.float32(2.0))
+_PI = float(PI)
+_TWO_PI = float(np.float32(2.0) * PI)
+_INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def procedural_skies(height: int = 256, width: int = 512) -> np.ndarray:
+    """Deterministic synthetic panoramas, (4, H, W, 3) uint8 (numpy).
+
+    A vertical sky→horizon gradient per time of day, a sun/moon glow band,
+    and hash-noise stars at night (numpy default_rng(1234), so the star
+    field matches the JAX package bit for bit).
+    """
+    ys = np.linspace(0.0, 1.0, height, dtype=np.float32)[:, None, None]
+    xs = np.linspace(0.0, 1.0, width, endpoint=False,
+                     dtype=np.float32)[None, :, None]
+    # per-time (zenith_rgb, horizon_rgb, glow_rgb, glow_x)
+    params = [
+        ((70, 110, 190), (255, 170, 110), (255, 210, 120), 0.25),   # morning
+        ((90, 150, 235), (200, 225, 255), (255, 255, 230), 0.50),   # day
+        ((60, 50, 120), (250, 120, 80), (255, 150, 90), 0.75),      # evening
+        ((8, 10, 30), (25, 30, 60), (200, 200, 230), 0.50),         # night
+    ]
+    out = np.zeros((4, height, width, 3), np.float32)
+    for i, (zen, hor, glow, gx) in enumerate(params):
+        zen = np.array(zen, np.float32)
+        hor = np.array(hor, np.float32)
+        glow = np.array(glow, np.float32)
+        grad = zen + (hor - zen) * np.clip(ys * 2.0, 0.0, 1.0)
+        dx = np.minimum(np.abs(xs - gx), 1.0 - np.abs(xs - gx)) * 2.0
+        dy = np.abs(ys - 0.45) * 2.0
+        halo = np.exp(-(dx**2 + dy**2) * 14.0)
+        img = grad + glow * halo * 0.8
+        if i == 3:  # stars
+            rng = np.random.default_rng(1234)
+            stars = (rng.random((height, width, 1)) > 0.9985).astype(np.float32)
+            img = img + stars * 200.0 * (ys < 0.55)
+        out[i] = img
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def load_skies(source: str = "procedural",
+               procedural_shape: Tuple[int, int] = (2048, 4096)) -> SkyTextures:
+    """Sky textures by source; only the procedural family exists here."""
+    if source != "procedural":
+        raise ValueError(f"unknown sky source {source!r}; the port ships "
+                         f"only 'procedural'")
+    return SkyTextures(texels=procedural_skies(*procedural_shape))
+
+
+def pack_sky(blended: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 → flat (H*W,) int32 of r | g << 8 | b << 16."""
+    b32 = blended.to(torch.int32)
+    return (b32[..., 0] | (b32[..., 1] << 8) | (b32[..., 2] << 16)).reshape(-1)
+
+
+def pack_sky_all(texels: torch.Tensor) -> torch.Tensor:
+    """All four panoramas (4, H, W, 3) uint8 → static (4, H*W) int32 stack."""
+    return torch.stack([pack_sky(texels[i]) for i in range(4)])
+
+
+def sky_blend_bands(sky_vars: torch.Tensor):
+    """→ (ia, ib, wa, wb): the ≤2 active panoramas and their weights.
+
+    calc_sky_vars (scene.cpp:778-804) yields at most two nonzero adjacent
+    weights summing to 1, so the 4-way truncated blend collapses to two
+    terms: trunc(tex_a·wa) + trunc(tex_b·wb) equals Σ trunc(tex_i·w_i).
+    Host values: sky_vars lives with the host state machine.
+    """
+    sv = np.asarray(sky_vars, np.float32)
+    ia = int(np.argmax(sv))
+    masked = np.where(np.arange(4) == ia, np.float32(-1.0), sv)
+    ib = int(np.argmax(masked))
+    return ia, ib, np.float32(sv[ia]), np.float32(max(masked[ib], 0.0))
+
+
+def _equirect_indices(h: int, w: int, d: torch.Tensor, day_frac: float):
+    """Direction (..., 3) → texel (iy, ix) (kernel.cu:156-163)."""
+    y = 1.0 - true_div(torch.asin(torch.clamp(d[..., 1], -1.0, 1.0))
+                       + _HALF_PI, _PI)
+    x = torch.remainder(true_div(torch.atan2(d[..., 0], d[..., 2]) + _PI,
+                                 _TWO_PI) + day_frac, 1.0)
+    ix = torch.clamp((x * w).to(torch.int32), 0, w - 1)
+    iy = torch.clamp((y * h).to(torch.int32), 0, h - 1)
+    return iy, ix
+
+
+def sample_sky_packed_pair(packed_all: torch.Tensor, h: int, w: int,
+                           d: torch.Tensor, day_frac, sky_vars):
+    """Flat equirect lookup on a pack_sky_all stack → (..., 3) f32 in [0,1].
+
+    day_frac is the host float32 day_time / 24; sky_vars the host weights.
+    """
+    iy, ix = _equirect_indices(h, w, d, float(np.float32(day_frac)))
+    idx = (iy * w + ix).to(torch.int64)
+    ia, ib, wa, wb = sky_blend_bands(sky_vars)
+    ta = packed_all[ia][idx]
+    if wb > 0:
+        tb = packed_all[ib][idx]
+        rgb = torch.stack(
+            [torch.floor(((ta >> s) & 0xFF).to(torch.float32) * float(wa))
+             + torch.floor(((tb >> s) & 0xFF).to(torch.float32) * float(wb))
+             for s in (0, 8, 16)], dim=-1)
+    else:
+        rgb = torch.stack([ta & 0xFF, (ta >> 8) & 0xFF, (ta >> 16) & 0xFF],
+                          dim=-1).to(torch.float32)
+    return rgb * _INV_255
