@@ -12,16 +12,28 @@ Phases (any failure exits non-zero):
   4. the slice: Engine(device="cuda") renders the four golden states
      against tests/golden/tpu/*.png, then runs the idle animated loop;
      both kernels' launch counters must have moved in this phase;
-  5. a JSON line per kernel, the card line, and the final status line.
+  5. the batch path: both kernels' K-frame forms against their plain
+     versions and single-frame launches, step_and_frame_batch against
+     step_and_frame, Engine.run(batch=8) against Engine.run; the batch
+     forms' counters must have moved in run(batch=8);
+  6. the CLI (render, record, record --resume, render --state, bench)
+     in-process in a temporary directory, against Engine frames;
+  7. a torch.profiler trace of 30 loop frames: the top device ops and the
+     device-busy share of the window;
+  8. a JSON line per kernel form, the card line, and the final status line.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -30,6 +42,7 @@ import torch
 DEVICE = "cuda"
 H, W = 720, 1280
 SKY_SHAPE = (2048, 4096)
+BATCH = 8              # the K of run(batch=8) and of the CLI's record
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "golden", "tpu")
 # golden states of tests/test_golden.py:39-44
@@ -80,6 +93,83 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed(fn):
+    """(fn(), device ms of that one call)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def varied_actions(n):
+    """n actions that turn, move, scrub the clock and toggle FXAA."""
+    from raytracing_cuda_tpu_torch.sim.actions import Action
+
+    return [Action.idle()._replace(
+        mouse_dx=np.float32(7.0 * (i - 3)), move_forward=np.int32(i % 3 == 1),
+        time_control=np.int32(1 if i % 2 else 0),
+        set_aa_off=np.bool_(i == 2), set_aa_on=np.bool_(i == 5))
+        for i in range(n)]
+
+
+def reset_counts():
+    from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
+
+    for fn in (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
+               fx.fxaa, fx.fxaa_batch):
+        fn.launches = 0
+    cuda_rt.raytrace_planes_batch.frames = 0
+    fx.fxaa_batch.frames = 0
+
+
+def read_counts() -> dict:
+    from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
+
+    return {"raytrace_megakernel": cuda_rt.raytrace_planes.launches,
+            "raytrace_megakernel_k8": cuda_rt.raytrace_planes_batch.launches,
+            "raytrace_megakernel_k8_frames":
+                cuda_rt.raytrace_planes_batch.frames,
+            "fxaa": fx.fxaa.launches, "fxaa_k8": fx.fxaa_batch.launches,
+            "fxaa_k8_frames": fx.fxaa_batch.frames}
+
+
+def states_equal(a, b) -> bool:
+    return (all(torch.equal(x, y) for x, y in zip(a.cam, b.cam))
+            and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])))
+
+
+def device_activity(trace_path: str):
+    """Chrome trace → (top device ops [(name, total ms, count)], device
+    busy ms, window ms). Busy is the union of kernel/memcpy/memset
+    intervals; the window spans every complete event of the trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ops: dict = {}
+    for e in dev:
+        ms, n = ops.get(e["name"], (0.0, 0))
+        ops[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    busy, end = 0.0, None
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events)) if events else 0.0
+    top = sorted(((n, ms, c) for n, (ms, c) in ops.items()),
+                 key=lambda t: -t[1])
+    return top, busy / 1e3, window / 1e3
 
 
 def card_line() -> str:
@@ -259,18 +349,241 @@ def main() -> int:
     report.update(slice=stats.as_dict(), launches=launches,
                   golden_rmse_max=worst)
 
-    # --- 5. report ---
+    # --- 5. the batch path ---
+    from raytracing_cuda_tpu_torch.scene.textures import (
+        sample_sky_packed_pair_batch)
+
+    def stacked_packs(states):
+        packs = [host_packs(scene, st, H, W, None, *clusters)
+                 for st in states]
+        return (torch.stack([p[0] for p in packs]).to(dev),
+                torch.stack([p[1] for p in packs]).to(dev))
+
+    def bases_of(planes, states):
+        r, g, b, mw, mdx, mdy, mdz = planes
+        sky = sample_sky_packed_pair_batch(
+            sky_pack, *SKY_SHAPE, torch.stack([mdx, mdy, mdz], -1),
+            [st.day_time / 24.0 for st in states],
+            [st.sky_vars for st in states])
+        return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sky)
+
+    golden_states = [make_state(**kw) for kw in CASES.values()]
+    coefs4, params4 = stacked_packs(golden_states)
+    k4 = cuda_rt.raytrace_planes_batch(coefs4, params4, H, W, nt, ns)
+    p4 = cuda_rt.raytrace_planes_batch_torch(coefs4, params4, H, W, nt, ns)
+    singles = [cuda_rt.raytrace_planes(coefs4[k], params4[k], H, W, nt, ns)
+               for k in range(4)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(k4, p4)),
+            "kernel A K=4 (golden states) equals its plain version bit for "
+            "bit")
+    require(all(torch.equal(k4[p][k], singles[k][p]) for p in range(7)
+                for k in range(4)),
+            "kernel A K=4 equals 4 single-frame launches bit for bit")
+
+    # K = 8: the golden states and 4 animated ones, at the main path's K
+    anim = [sim.animate(golden_states[0], a, 1 / 30)
+            for a in varied_actions(4)]
+    states8 = golden_states + anim
+    coefs8, params8 = stacked_packs(states8)
+    k8 = cuda_rt.raytrace_planes_batch(coefs8, params8, H, W, nt, ns)
+    p8, ms_a8_plain = timed(lambda: cuda_rt.raytrace_planes_batch_torch(
+        coefs8, params8, H, W, nt, ns))
+    a8_err = max(float((a - b).abs().max()) for a, b in zip(k8, p8))
+    require(a8_err == 0.0, f"kernel A K=8 vs plain max|diff| {a8_err}")
+    ms_a8 = cuda_ms(lambda: cuda_rt.raytrace_planes_batch(
+        coefs8, params8, H, W, nt, ns), 10)
+    print(f"kernel A 720p: K=8 {ms_a8:.4f} ms per launch = "
+          f"{ms_a8 / BATCH:.4f} ms per frame vs K=1 {ms_a:.4f} ms per frame "
+          f"(plain K=8 {ms_a8_plain:.4f} ms) [{card}]", flush=True)
+
+    base8 = bases_of(k8, states8)
+    fb8 = fx.fxaa_batch(base8)
+    fb8_plain = fx.fxaa_batch_torch(base8)
+    fb8_err = int((fb8.int() - fb8_plain.int()).abs().max())
+    require(fb8_err == 0, f"kernel B K=8 vs plain max|diff| {fb8_err}")
+    require(all(torch.equal(fb8[k], fx.fxaa(base8[k])) for k in range(8)),
+            "kernel B K=8 equals per-frame launches bit for bit")
+    ms_b8 = cuda_ms(lambda: fx.fxaa_batch(base8), 100)
+    ms_b8_plain = cuda_ms(lambda: fx.fxaa_batch_torch(base8), 5)
+    print(f"kernel B 720p: K=8 {ms_b8:.4f} ms per launch = "
+          f"{ms_b8 / BATCH:.4f} ms per frame vs K=1 {ms_b:.4f} ms "
+          f"(plain K=8 {ms_b8_plain:.4f} ms) [{card}]", flush=True)
+
+    acts = varied_actions(BATCH)
+    dts = [1 / 60 + 0.01 * i for i in range(BATCH)]
+    st0 = make_state(9.5)            # the 8-10 h crossfade: two panoramas
+    eng.set_state(st0)
+    reset_counts()
+    imgs = eng.step_and_frame_batch(acts, dts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    end_batch = eng.state
+    eng.set_state(st0)
+    seq = [eng.step_and_frame(a, dt) for a, dt in zip(acts, dts)]
+    require(all(torch.equal(imgs[k], seq[k]) for k in range(BATCH))
+            and states_equal(end_batch, eng.state),
+            f"step_and_frame_batch of {BATCH} equals {BATCH} step_and_frame "
+            f"calls (frames and end state)")
+    require(counts["raytrace_megakernel_k8"] == 1 and counts["fxaa_k8"] == 1
+            and counts["raytrace_megakernel_k8_frames"] == BATCH,
+            f"step_and_frame_batch launched each batch kernel once: {counts}")
+
+    fps = {}
+    batch_counts = None
+    for label, batch in (("single", 1), ("batch8", BATCH), ("batch8", BATCH),
+                         ("single", 1)):
+        eng.set_state(make_state(6.0))
+        reset_counts()
+        st = eng.run(args.frames, batch=batch)
+        if batch > 1:
+            batch_counts = read_counts()
+        fps.setdefault(label, []).append(st.fps)
+        ms = sorted(st.frame_ms)
+        print(f"Engine.run({args.frames}, batch={batch}) 1280x720 island: "
+              f"{st.fps:.2f} fps, frame ms median {ms[len(ms) // 2]:.4f} "
+              f"(CUDA events) [{card}]", flush=True)
+    print(f"run fps single {fps['single']} vs batch={BATCH} {fps['batch8']}",
+          flush=True)
+    print(f"launch counts in Engine.run(batch={BATCH}): {batch_counts}",
+          flush=True)
+    require(batch_counts["raytrace_megakernel_k8"] > 0
+            and batch_counts["fxaa_k8"] > 0,
+            "both batch kernel forms launched by run(batch=8)")
+    report.update(batch={"fps": fps, "counts": batch_counts,
+                         "kernel_a_k8_ms": ms_a8, "fxaa_k8_ms": ms_b8})
+
+    # --- 6. the CLI, in-process ---
+    from raytracing_cuda_tpu_torch import __main__ as cli
+    from raytracing_cuda_tpu_torch.utils.checkpoint import save_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--size", f"{W}x{H}", "--path", "cuda"]
+
+        def run_cli(*argv):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([*argv, *common])
+            require(rc == 0, f"cli {' '.join(argv)} exits 0")
+            return out.getvalue()
+
+        def cli_state(*argv):
+            return cli.build_state(cli._parser().parse_args(
+                [*argv, *common]), cli_eng.state)
+
+        cli_eng = Engine(RenderConfig(width=W, height=H, sky_source="auto",
+                                      procedural_sky_shape=(1024, 2048)),
+                         device=DEVICE)
+        fresh = cli_eng.state
+        run_cli("render", f"{tmp}/r.png", "--day", "14", "--cam", "1")
+        cli_eng.set_state(cli_state("render", "--day", "14", "--cam", "1"))
+        require(np.array_equal(load_png(f"{tmp}/r.png"), cli_eng.frame_np()),
+                "cli render equals the Engine frame of the same state")
+
+        rec = f"{tmp}/rec"
+        reset_counts()
+        run_cli("record", rec, "--frames", "20")
+        rec_counts = read_counts()
+        require(rec_counts["raytrace_megakernel_k8"] == 2
+                and rec_counts["fxaa_k8"] == 2,
+                f"cli record ran 2 batches of {BATCH}: {rec_counts}")
+        require(sorted(os.listdir(rec)) == [f"{i:04d}.png"
+                                            for i in range(20)],
+                "cli record wrote 20 PNGs")
+        cli_eng.set_state(fresh)
+        want = {}
+        for i in range(20):
+            img = cli_eng.step_and_frame(cli.scripted_action(i),
+                                         cli.RECORD_DT)
+            if i in (0, 8, 19):
+                want[i] = img.cpu().numpy()
+        for i, img in want.items():
+            require(np.array_equal(load_png(f"{rec}/{i:04d}.png"), img),
+                    f"cli record frame {i} equals the scripted Engine frame")
+
+        before = {i: open(f"{rec}/{i:04d}.png", "rb").read()
+                  for i in range(14, 20)}
+        for i in range(15, 20):
+            os.remove(f"{rec}/{i:04d}.png")
+        run_cli("record", rec, "--frames", "20", "--resume")
+        require(all(open(f"{rec}/{i:04d}.png", "rb").read() == before[i]
+                    for i in range(14, 20)),
+                "cli record --resume rewrote frames 14-19 byte-identical")
+
+        saved = sim.animate(make_state(18.0, sea=2.0), varied_actions(2)[1],
+                            0.3)
+        save_state(saved, f"{tmp}/s.json")
+        run_cli("render", f"{tmp}/s.png", "--state", f"{tmp}/s.json")
+        cli_eng.set_state(saved)
+        require(np.array_equal(load_png(f"{tmp}/s.png"), cli_eng.frame_np()),
+                "cli render --state renders the saved state")
+
+        bench = ast.literal_eval(
+            run_cli("bench", "--frames", "60").strip().splitlines()[-1])
+        print(f"cli bench --frames 60: {bench} [{card}]", flush=True)
+        require(bench["frames"] == 60 and bench["fps"] > 0,
+                "cli bench prints its stats")
+        report["cli_bench"] = bench
+
+    # --- 7. profile 30 loop frames ---
+    from raytracing_cuda_tpu_torch.utils import profiling
+
+    eng.set_state(make_state(6.0))
+    for _ in range(5):
+        eng.step_and_frame()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(30):
+                eng.step_and_frame()
+            torch.cuda.synchronize()
+        top, busy_ms, window_ms = device_activity(
+            os.path.join(tmp, profiling.TRACE_FILE))
+    # the profiler slows the host half, so also hold the device work per
+    # frame against the same 30 frames run without it
+    t0 = time.perf_counter()
+    for _ in range(30):
+        eng.step_and_frame()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / 30
+    print(f"profile of 30 loop frames: device busy {busy_ms:.4f} ms of a "
+          f"{window_ms:.4f} ms window = {busy_ms / max(window_ms, 1e-9):.2%}"
+          f" (torch.profiler); device work {busy_ms / 30:.4f} ms per frame "
+          f"= {busy_ms / 30 / frame_ms:.2%} of an unprofiled frame "
+          f"({frame_ms:.4f} ms, host clock) [{card}]", flush=True)
+    for rank, (name, ms_tot, n) in enumerate(top[:5], 1):
+        print(f"  top {rank}: {ms_tot:.4f} ms in {n} calls: {name[:100]}",
+              flush=True)
+    names = [t[0] for t in top]
+    for kname in ("raytrace_kernel", "fxaa_kernel"):
+        ranks = [i + 1 for i, n in enumerate(names) if kname in n]
+        require(bool(ranks), f"the profile names {kname} (rank {ranks})")
+    report["profile"] = {"busy_ms": busy_ms, "window_ms": window_ms,
+                         "unprofiled_frame_ms": frame_ms,
+                         "top": top[:5]}
+
+    # --- 8. report ---
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
          "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
          "launches": launches["raytrace"], "max_abs_err": a_err,
          "ms": ms_a, "plain_ms": ms_a_plain},
+        {"name": "raytrace_megakernel_k8", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
+         "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
+         "launches": batch_counts["raytrace_megakernel_k8"],
+         "max_abs_err": a8_err, "ms": ms_a8, "plain_ms": ms_a8_plain},
         {"name": "fxaa", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
          "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
          "launches": launches["fxaa"], "max_abs_err": b_err,
          "ms": ms_b, "plain_ms": ms_b_plain},
+        {"name": "fxaa_k8", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
+         "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
+         "launches": batch_counts["fxaa_k8"], "max_abs_err": fb8_err,
+         "ms": ms_b8, "plain_ms": ms_b8_plain},
     ]
     report["kernels"] = kernels
     report["kernel_a_hit_miss_mismatch_max"] = a_mismatch

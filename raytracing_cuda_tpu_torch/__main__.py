@@ -1,0 +1,274 @@
+"""Command-line entry points (port of raytracing_cuda_tpu/__main__.py).
+
+  python -m raytracing_cuda_tpu_torch render out.png      one frame to PNG
+  python -m raytracing_cuda_tpu_torch record out_dir/     scripted frames
+  python -m raytracing_cuda_tpu_torch bench               sustained-FPS loop
+
+`--path auto` (the default) and `--path cuda` render with the CUDA kernels
+on card `--device N` and fail where no card is present; `--path plain`
+renders on the CPU with their plain PyTorch versions. The interactive
+`window`, the XLA paths `fast`/`oracle` and the multi-device `--dp` /
+`--dp-rows` of the JAX CLI are not ported yet (ROADMAP Queue 1): they are
+usage errors here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+# record: full batches of this many frames through step_and_frame_batch,
+# then the tail frame by frame
+RECORD_BATCH = 8
+RECORD_DT = 1 / 30
+NOT_PORTED = "not ported yet, see ROADMAP"
+
+
+def scripted_action(i: int):
+    """record's input for frame i: a slow sine pan with the clock
+    scrubbing forward (__main__.py:199-202 of the JAX CLI)."""
+    from raytracing_cuda_tpu_torch.sim.actions import Action
+
+    return Action.idle()._replace(
+        mouse_dx=np.float32(3.0 * np.sin(i * 0.05)),
+        time_control=np.int32(1))
+
+
+def _parse_wh(value: str, flag: str) -> "tuple[int, int]":
+    try:
+        w, h = (int(v) for v in value.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"{flag} must be WxH (e.g. 1280x720), "
+                         f"got {value!r}")
+    return w, h
+
+
+def _config(args):
+    from raytracing_cuda_tpu_torch.utils.config import RenderConfig
+
+    w, h = _parse_wh(args.size, "--size")
+    # SSAA (render/record only): the engine renders at N x the requested
+    # size; frames are box-resolved back down at write time
+    if args.command in ("render", "record") and args.ssaa > 1:
+        w, h = w * args.ssaa, h * args.ssaa
+    ssw, ssh = _parse_wh(args.sky_shape, "--sky-shape")
+    return RenderConfig(width=w, height=h, sky_source=args.sky,
+                        scene=args.scene, procedural_sky_shape=(ssh, ssw))
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="raytracing_cuda_tpu_torch")
+    ap.add_argument("command", choices=["window", "render", "record", "bench"])
+    ap.add_argument("target", nargs="?", default=None,
+                    help="output png (render) / output dir (record)")
+    ap.add_argument("--size", default="1280x720")
+    ap.add_argument("--sky", default="auto",
+                    choices=["auto", "reference", "procedural"],
+                    help="auto resolves to procedural: the reference "
+                         "panoramas are not shipped")
+    ap.add_argument("--sky-shape", default="2048x1024",
+                    help="procedural panorama size WxH, same axis order as "
+                         "--size")
+    ap.add_argument("--path", default="auto",
+                    choices=["auto", "cuda", "plain", "fast", "oracle"],
+                    help="auto/cuda: the CUDA kernels on card --device "
+                         "(no CPU fallback); plain: their plain PyTorch "
+                         "versions on the CPU")
+    ap.add_argument("--scene", default="island", choices=["island", "classic"])
+    ap.add_argument("--state", default=None,
+                    help="load a FrameState checkpoint (utils.checkpoint JSON)")
+    ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--day", type=float, default=None, help="clock hour 0-24")
+    ap.add_argument("--cam", type=int, default=None, help="camera preset 0/1")
+    ap.add_argument("--no-aa", action="store_true")
+    ap.add_argument("--gif", default=None,
+                    help="record: also assemble frames into an animated GIF "
+                         "(needs PIL)")
+    ap.add_argument("--dp", type=int, default=1, help=NOT_PORTED)
+    ap.add_argument("--dp-rows", type=int, default=1, help=NOT_PORTED)
+    ap.add_argument("--resume", action="store_true",
+                    help="record: skip frames already on disk (contiguous "
+                         "prefix, re-rendering its last frame) and "
+                         "fast-forward the state machine past them")
+    ap.add_argument("--png-level", type=int, default=0,
+                    help="record PNG compression 0-9 (0 = stored deflate, "
+                         "the default; >0 = Sub-filtered zlib on writer "
+                         "threads)")
+    ap.add_argument("--ssaa", type=int, default=1,
+                    help="render/record: render at N x --size and "
+                         "box-resolve down")
+    ap.add_argument("--device", type=int, default=None,
+                    help="CUDA card index (cuda:N; the reference's "
+                         "-device=N flag, main.cpp:391)")
+    return ap
+
+
+def _check_usage(ap, args) -> None:
+    """Refuse what the port does not run, before any engine is built."""
+    if args.command == "window":
+        ap.error(f"window: {NOT_PORTED}")
+    if args.path in ("fast", "oracle"):
+        ap.error(f"--path {args.path}: {NOT_PORTED}")
+    if args.dp > 1 or args.dp_rows > 1:
+        ap.error(f"--dp/--dp-rows: {NOT_PORTED}")
+    if args.ssaa < 1:
+        ap.error(f"--ssaa must be >= 1, got {args.ssaa}")
+    if args.ssaa > 1 and args.command == "bench":
+        ap.error("--ssaa applies to render/record only; bench always runs "
+                 "at --size")
+    if args.device is not None and args.path == "plain":
+        ap.error("--device selects a CUDA card; --path plain runs on the CPU")
+    if args.gif:
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            ap.error("--gif needs PIL (pillow), which is not installed")
+
+
+def _device(args) -> str:
+    if args.path == "plain":
+        return "cpu"
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit(f"--path {args.path} needs a CUDA card and "
+                         f"torch.cuda.is_available() is False; use --path "
+                         f"plain for the CPU")
+    return f"cuda:{args.device or 0}"
+
+
+def build_state(args, default_state):
+    """Apply --state/--day/--cam/--no-aa. A loaded checkpoint is used
+    verbatim (settle would overwrite its recolor_vars); settle runs only
+    when --day/--cam changed the clock or pose, or no checkpoint was
+    given."""
+    import torch
+
+    from raytracing_cuda_tpu_torch.sim import state as sim
+    from raytracing_cuda_tpu_torch.sim.actions import Action
+
+    st = default_state
+    if args.state:
+        from raytracing_cuda_tpu_torch.utils.checkpoint import load_state
+
+        st = load_state(args.state)
+    needs_settle = not args.state
+    if args.day is not None:
+        st = st._replace(day_time=torch.tensor(np.float32(args.day)))
+        needs_settle = True
+    if args.cam is not None:
+        st = sim.apply_controls(
+            st, Action.idle()._replace(cam_preset=np.int32(args.cam)), 0.0)
+        needs_settle = True
+    if args.no_aa:
+        st = st._replace(aa=torch.tensor(False))
+    return sim.settle(st) if needs_settle else st
+
+
+def _record(args, eng) -> int:
+    from raytracing_cuda_tpu_torch.utils import frameio
+    from raytracing_cuda_tpu_torch.utils.images import box_downsample, to_host
+
+    out_dir = args.target or "frames"
+    os.makedirs(out_dir, exist_ok=True)
+    if not frameio.available():
+        frameio.build()      # g++ once into _build/; save_png fallback below
+
+    def frame_path(i):
+        return os.path.join(out_dir, f"{i:04d}.png")
+
+    start = 0
+    if args.resume:
+        while start < args.frames and os.path.exists(frame_path(start)):
+            start += 1
+        # the last prefix frame may be truncated by the very crash --resume
+        # recovers from (writes are not atomic): always re-render it
+        start = max(start - 1, 0)
+        if start:
+            eng.fast_forward([scripted_action(i) for i in range(start)],
+                             RECORD_DT)
+            print(f"resume: {start} frames already in {out_dir}, state "
+                  f"fast-forwarded", file=sys.stderr)
+
+    def emit_all(write):
+        i = start
+        while args.frames - i >= RECORD_BATCH:
+            imgs = to_host(eng.step_and_frame_batch(
+                [scripted_action(i + j) for j in range(RECORD_BATCH)],
+                [RECORD_DT] * RECORD_BATCH))
+            for j in range(RECORD_BATCH):
+                write(box_downsample(imgs[j], args.ssaa), frame_path(i + j))
+            i += RECORD_BATCH
+        for i in range(i, args.frames):
+            img = eng.step_and_frame(scripted_action(i), RECORD_DT)
+            write(box_downsample(img, args.ssaa), frame_path(i))
+
+    level = frameio.set_png_level(args.png_level)
+    if level != args.png_level:
+        if level == 0 and args.png_level > 0:
+            print("note: PNG compression unavailable (zlib-less frameio "
+                  "build) — writing uncompressed (level 0)", file=sys.stderr)
+        else:
+            print(f"note: PNG level clamped to {level} (valid range 0-9)",
+                  file=sys.stderr)
+    if frameio.available():
+        threads = 4 if level > 0 else 1
+        with frameio.AsyncFrameWriter(ring=4, threads=threads) as w:
+            emit_all(w.submit)
+            w.drain()
+            written = w.written
+        if written != args.frames - start:
+            print(f"ERROR: only {written}/{args.frames - start} frames "
+                  f"written (disk full or {out_dir} unwritable?)",
+                  file=sys.stderr)
+            return 1
+    else:
+        emit_all(frameio.write_png)
+    print(f"wrote {args.frames} frames to {out_dir}")
+    if args.gif and args.frames > 0:
+        from PIL import Image
+
+        def load(i):
+            return Image.open(frame_path(i)).convert("P")
+
+        rest = (load(i) for i in range(1, args.frames))
+        load(0).save(args.gif, save_all=True, append_images=rest,
+                     duration=33, loop=0)
+        print(f"wrote {args.gif}")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _check_usage(ap, args)
+    try:
+        config = _config(args)
+    except ValueError as e:
+        ap.error(str(e))
+    device = _device(args)
+
+    from raytracing_cuda_tpu_torch.app.loop import Engine
+
+    eng = Engine(config, device)
+    eng.set_state(build_state(args, eng.state))
+
+    if args.command == "render":
+        from raytracing_cuda_tpu_torch.utils.images import (box_downsample,
+                                                            save_png)
+
+        out = args.target or "frame.png"
+        save_png(box_downsample(eng.frame_np(), args.ssaa), out)
+        print(f"wrote {out}")
+        return 0
+    if args.command == "record":
+        return _record(args, eng)
+    print(eng.run(args.frames).as_dict())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,6 +5,8 @@ a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ctypes. Libraries go to `_build/` beside this file, named by a
 hash of the source and the flags, so an edited source builds anew and an
 unchanged one is reused. A file lock serialises builds between processes.
+`build` is the same scheme for any compiler (utils/frameio.py uses it with
+g++ for the native PNG writer).
 
 Nothing here runs at import: the first launch of a kernel on a CUDA tensor
 calls `load`. A failed build raises; there is no fallback.
@@ -20,6 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -51,32 +54,36 @@ def nvcc_version() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+def lib_path(name: str, source: Path, flags, build_dir: Path = BUILD_DIR
+             ) -> Path:
+    """Where `source` built with `flags` lives: lib<name>-<hash>.so."""
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    return build_dir / f"lib{name}-{key}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu → ctypes library."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = _lib_path(name)
-    BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+def build(name: str, source: Path, compiler: Callable[[], str], flags,
+          libs=(), build_dir: Path = BUILD_DIR) -> Path:
+    """Compile `source` into a shared library under build_dir (once per
+    source and flags; the build dir's lock serialises processes) → its
+    path. `compiler()` names the compiler and is asked only when a build
+    is needed. Raises RuntimeError when the compiler fails."""
+    out = lib_path(name, source, (*flags, *libs), build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not out.exists():
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC / f"{name}.cu")]
+                cmd = [compiler(), *flags, "-o", str(tmp), str(source),
+                       *libs]
                 t0 = time.perf_counter()
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-                        f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+                        f"{cmd[0]} failed for {source.name} (rc "
+                        f"{proc.returncode}):\n{' '.join(cmd)}\n"
+                        f"{proc.stdout}\n{proc.stderr}")
                 os.replace(tmp, out)
                 BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                                    "ptxas": proc.stderr.strip()}
@@ -84,7 +91,16 @@ def load(name: str) -> ctypes.CDLL:
                 BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "cached"})
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    lib = ctypes.CDLL(str(out))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu → ctypes library."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(name, CSRC / f"{name}.cu", nvcc_path,
+                                NVCC_FLAGS)))
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

@@ -11,12 +11,17 @@ splits it (scene.cpp:806-816, kernel.cu:406-462):
 3. one copy moves them into device buffers allocated once;
 4. the device runs the megakernel, the sky lookup + quantize, and FXAA.
 
+`step_and_frame_batch` does the same for K frames with one copy and one
+launch of each kernel (render/pipeline.py `batch_packs` /
+`frames_from_packs`); `run(batch=K)` and the CLI's `record` drive it.
+
 The device is always explicit: Engine(config, device="cuda") runs the CUDA
 kernels, device="cpu" their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -24,7 +29,10 @@ import torch
 
 from raytracing_cuda_tpu_torch.core.types import Camera
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
-from raytracing_cuda_tpu_torch.render.pipeline import _base, host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
+                                                       frames_from_packs,
+                                                       host_packs,
+                                                       pack_actions)
 from raytracing_cuda_tpu_torch.scene.builders import (CLASSIC_CAMERA,
                                                       SPH_CLUSTERS,
                                                       TRI_CLUSTERS, TRI_SUBS,
@@ -40,44 +48,54 @@ from raytracing_cuda_tpu_torch.utils.timing import (FrameStats, FrameTimer,
 class Engine:
     """Scene + static sky stack + frame state, rendering on one device."""
 
-    def __init__(self, config: RenderConfig, device):
+    def __init__(self, config: RenderConfig, device,
+                 share_assets_from: "Engine | None" = None):
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda') but CUDA is unavailable")
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
-        self.scene = build_named_scene(config.scene)
-        texels = load_skies(config.sky_source,
-                            config.procedural_sky_shape).texels
-        self.sky_h, self.sky_w = texels.shape[1:3]
-        self.sky_pack = pack_sky_all(torch.from_numpy(texels).to(self.device))
-        state = sim.init_state()._replace(
-            aa=torch.tensor(bool(config.antialiasing)))
-        if config.scene == "classic":
+        src = share_assets_from
+        if src is not None:
+            # the resize path (main.cpp:293-306): same scene, sky and state
+            if (src.device, src.config.scene, src.config.sky_source,
+                    src.config.procedural_sky_shape) != (
+                    self.device, config.scene, config.sky_source,
+                    config.procedural_sky_shape):
+                raise ValueError("share_assets_from needs the same device, "
+                                 "scene and sky")
+            self.scene, self.state = src.scene, src.state
+            self.sky_pack, self.sky_h, self.sky_w = (src.sky_pack, src.sky_h,
+                                                     src.sky_w)
+        else:
+            self.scene = build_named_scene(config.scene)
+            texels = load_skies(config.sky_source,
+                                config.procedural_sky_shape).texels
+            self.sky_h, self.sky_w = texels.shape[1:3]
+            self.sky_pack = pack_sky_all(
+                torch.from_numpy(texels).to(self.device))
+            self.state = self._initial_state()
+        self.tri_clusters = TRI_CLUSTERS.get(config.scene)
+        self.sph_clusters = SPH_CLUSTERS.get(config.scene)
+        self.tri_subs = TRI_SUBS.get(config.scene)
+        # per-frame upload buffers, one set per batch size K, allocated at
+        # its first use: the device buffer the kernels read and (on CUDA) a
+        # pinned host staging buffer whose copy-done event gates the next
+        # host write
+        self._bufs: dict = {}
+
+    def _initial_state(self) -> sim.FrameState:
+        c = self.config
+        state = sim.init_state()._replace(aa=torch.tensor(bool(c.antialiasing)))
+        if c.scene == "classic":
             cc = CLASSIC_CAMERA
             state = state._replace(cam=Camera(
                 pos=torch.tensor(cc["pos"], dtype=torch.float32),
                 hor_angle=torch.tensor(cc["hor_angle"], dtype=torch.float32),
                 ver_angle=torch.tensor(cc["ver_angle"], dtype=torch.float32),
                 fov=torch.tensor(cc["fov"], dtype=torch.float32)))
-        self.state = sim.settle(state)
-        self.tri_clusters = TRI_CLUSTERS.get(config.scene)
-        self.sph_clusters = SPH_CLUSTERS.get(config.scene)
-        self.tri_subs = TRI_SUBS.get(config.scene)
-
-        # per-frame upload buffers, allocated once: the device buffer the
-        # kernels read, and (on CUDA) a pinned host staging buffer whose
-        # copy-done event gates the next frame's host write
-        coef, params, _, _ = self._packs()
-        self._coef_shape = tuple(coef.shape)
-        self._n_coef = coef.numel()
-        n = coef.numel() + params.numel()
-        self._dev_buf = torch.empty(n, dtype=torch.float32, device=self.device)
-        if self.device.type == "cuda":
-            self._host_buf = torch.empty(n, dtype=torch.float32,
-                                         pin_memory=True)
-            self._copied = torch.cuda.Event()
+        return sim.settle(state)
 
     # --- state ---
 
@@ -86,8 +104,29 @@ class Engine:
         self.state = sim.animate(self.state, action or Action.idle(), dt)
         return self.state
 
+    def fast_forward(self, action_vecs, dt: float = 1 / 30):
+        """Advance the state machine past a batch of actions without
+        rendering (record --resume). action_vecs: packed (K, 16) vectors or
+        a list of Actions (packed with dt). A host loop, so the result is
+        exactly that of stepping frame by frame."""
+        dts = ([dt] * len(action_vecs)
+               if isinstance(action_vecs, (list, tuple)) else None)
+        for av in pack_actions(action_vecs, dts):
+            self.state = sim.animate(self.state, Action.unpack(av),
+                                     Action.unpack_dt(av))
+        return self.state
+
     def set_state(self, state: sim.FrameState):
         self.state = state
+
+    def time_string(self) -> str:
+        return sim.format_time(float(self.state.day_time))
+
+    def resized(self, width: int, height: int) -> "Engine":
+        """An Engine at another framebuffer size sharing this one's scene,
+        sky stack and state (the reference's reshape, main.cpp:293-306)."""
+        cfg = dataclasses.replace(self.config, width=width, height=height)
+        return Engine(cfg, self.device, share_assets_from=self)
 
     # --- rendering ---
 
@@ -96,26 +135,37 @@ class Engine:
         return host_packs(self.scene, self.state, c.height, c.width, c.aspect,
                           self.tri_clusters, self.sph_clusters, self.tri_subs)
 
-    def _upload(self, coef, params):
-        """Host packs → views of the device buffer (one copy on CUDA)."""
-        n = self._n_coef
-        if self.device.type == "cpu":
-            self._dev_buf[:n] = coef.reshape(-1)
-            self._dev_buf[n:] = params
+    def _upload(self, coefs, params):
+        """K frames of host packs (K, n, C), (K, P) → views of the device
+        buffer for K frames (one copy on CUDA)."""
+        n = coefs.numel()
+        bufs = self._bufs.get(coefs.shape[0])
+        if bufs is None:
+            size = n + params.numel()
+            cuda = self.device.type == "cuda"
+            bufs = self._bufs[coefs.shape[0]] = (
+                torch.empty(size, dtype=torch.float32, device=self.device),
+                torch.empty(size, dtype=torch.float32, pin_memory=True)
+                if cuda else None,
+                torch.cuda.Event() if cuda else None)
+        dev_buf, host_buf, copied = bufs
+        if host_buf is None:
+            dev_buf[:n] = coefs.reshape(-1)
+            dev_buf[n:] = params.reshape(-1)
         else:
-            self._copied.synchronize()     # the previous copy has read it
-            self._host_buf[:n] = coef.reshape(-1)
-            self._host_buf[n:] = params
-            self._dev_buf.copy_(self._host_buf, non_blocking=True)
-            self._copied.record()
-        return self._dev_buf[:n].view(self._coef_shape), self._dev_buf[n:]
+            copied.synchronize()     # the previous copy has read it
+            host_buf[:n] = coefs.reshape(-1)
+            host_buf[n:] = params.reshape(-1)
+            dev_buf.copy_(host_buf, non_blocking=True)
+            copied.record()
+        return dev_buf[:n].view(coefs.shape), dev_buf[n:].view(params.shape)
 
     def frame(self) -> torch.Tensor:
         """Render the current state → (H, W, 3) uint8 on the engine device."""
         c = self.config
         coef, params, n_tri, n_sph = self._packs()
-        coef_d, params_d = self._upload(coef, params)
-        base = _base(coef_d, params_d, n_tri, n_sph, self.sky_pack,
+        coef_d, params_d = self._upload(coef[None], params[None])
+        base = _base(coef_d[0], params_d[0], n_tri, n_sph, self.sky_pack,
                      self.sky_h, self.sky_w, self.state, c.height, c.width)
         return apply_fxaa(base, bool(self.state.aa))
 
@@ -125,6 +175,26 @@ class Engine:
         self.step(action, dt)
         return self.frame()
 
+    def step_and_frame_batch(self, actions, dts=None) -> torch.Tensor:
+        """Step and render K frames → (K, H, W, 3) uint8 on the engine
+        device, each kernel launched once for the batch. actions: a list of
+        Actions (dts per frame, default 1/60 each) or packed (K, 16)
+        vectors carrying their own dt. Frame k equals the k-th of K
+        step_and_frame calls."""
+        if isinstance(actions, (list, tuple)) and dts is None:
+            dts = [1 / 60] * len(actions)
+        c = self.config
+        coefs, params, n_tri, n_sph, states = batch_packs(
+            self.scene, self.state, pack_actions(actions, dts), c.height,
+            c.width, c.aspect, self.tri_clusters, self.sph_clusters,
+            self.tri_subs)
+        coefs_d, params_d = self._upload(coefs, params)
+        imgs = frames_from_packs(coefs_d, params_d, n_tri, n_sph,
+                                 self.sky_pack, self.sky_h, self.sky_w,
+                                 states, c.height, c.width)
+        self.state = states[-1]
+        return imgs
+
     def frame_np(self) -> np.ndarray:
         return self.frame().cpu().numpy()
 
@@ -133,19 +203,47 @@ class Engine:
     def run(self, n_frames: int,
             action_fn: Callable[[int], Action] | None = None,
             dt: float = 1 / 60, warmup: int = 2,
-            on_frame: Callable[[int, torch.Tensor], None] | None = None
-            ) -> FrameStats:
+            on_frame: Callable[[int, torch.Tensor], None] | None = None,
+            batch: int = 1) -> FrameStats:
         """Headless loop: step + render n_frames (idle input by default),
-        after `warmup` untimed frames from the same starting state."""
+        after `warmup` untimed frames (or batches) from the same starting
+        state.
+
+        batch > 1 renders full batches of that many frames through
+        step_and_frame_batch, then the remainder frame by frame; on_frame
+        is then not available. In batch mode frame_ms holds one entry per
+        batch, the batch's interval divided by its frame count (and one per
+        remainder frame).
+        """
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        if batch > 1 and on_frame is not None:
+            raise ValueError("on_frame needs batch=1: batches yield frames "
+                             "per batch")
         state0 = self.state
         for _ in range(warmup):
-            self.step_and_frame(None, dt)
+            if batch > 1:
+                self.step_and_frame_batch([Action.idle()] * batch,
+                                          [dt] * batch)
+            if batch == 1 or n_frames % batch:
+                self.step_and_frame(None, dt)
         device_sync(self.device)
         self.state = state0
+
+        def action(i):
+            return action_fn(i) if action_fn else Action.idle()
+
         c = self.config
         timer = FrameTimer(c.width, c.height, self.device).start()
-        for i in range(n_frames):
-            img = self.step_and_frame(action_fn(i) if action_fn else None, dt)
+        done = 0
+        if batch > 1:
+            while done + batch <= n_frames:
+                self.step_and_frame_batch(
+                    [action(done + j) for j in range(batch)], [dt] * batch)
+                timer.tick(batch)
+                done += batch
+        for i in range(done, n_frames):
+            img = self.step_and_frame(action(i), dt)
             if on_frame is not None:
                 on_frame(i, img)
             timer.tick()

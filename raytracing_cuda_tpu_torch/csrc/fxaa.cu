@@ -19,6 +19,10 @@
 // image-border pixels passed through. Interior pixels only read in-bounds
 // neighbours, so no edge padding is needed (and the reference's halo-load
 // precedence bug at kernel.cu:318-319 has no counterpart).
+//
+// Frames: blockIdx.z is the frame of a (K, H, W, 3) batch, the counterpart
+// of the JAX package's lax.map of the Pallas kernel over frames
+// (render/pipeline.py:273-275); each frame is filtered on its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,11 +44,14 @@ __device__ __forceinline__ float lum(const uint8_t* __restrict__ img, int W,
 }
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-fxaa_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H,
-            int W) {
+fxaa_kernel(const uint8_t* __restrict__ frames_in,
+            uint8_t* __restrict__ frames_out, int H, int W) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
+    const size_t frame = (size_t)blockIdx.z * H * W * 3;
+    const uint8_t* __restrict__ in = frames_in + frame;
+    uint8_t* __restrict__ out = frames_out + frame;
     const size_t o = ((size_t)y * W + x) * 3;
     bool use_aa = x > 0 && y > 0 && x < W - 1 && y < H - 1;
 
@@ -96,11 +103,14 @@ fxaa_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H,
 
 }  // namespace
 
-extern "C" int rt_fxaa(const uint8_t* in, uint8_t* out, int H, int W,
+// in, out: K x H x W x 3 uint8
+extern "C" int rt_fxaa(const uint8_t* in, uint8_t* out, int K, int H, int W,
                        void* stream) {
-    if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+    if (K < 1 || K > 65535 || H < 1 || W < 1)
+        return (int)cudaErrorInvalidValue;
     const dim3 block(BLOCK_X, BLOCK_Y);
-    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
+    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y,
+                    K);
     fxaa_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, out, H, W);
     return (int)cudaGetLastError();
 }

@@ -19,7 +19,11 @@
 // multiplies and adds (built with -fmad=false), IEEE division and sqrtf,
 // 1/sqrtf where JAX uses rsqrt, and pow as exp2f(e * log2f(s)).
 //
-// Output: out[7][H][W] float32 = r, g, b, miss weight, miss dir x, y, z.
+// Frames: blockIdx.z is the frame of a K-frame batch (the TPU kernel's
+// leading grid axis, pallas_rt.py:1145-1171). Each block stages its own
+// frame's params and coefficient rows; K = 1 is the single-frame launch.
+//
+// Output: out[7][K][H][W] float32 = r, g, b, miss weight, miss dir x, y, z.
 
 #include <cuda_runtime.h>
 
@@ -141,16 +145,20 @@ __device__ bool occluded(const float* C, int tri_end, int sph_end,
 }
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-raytrace_kernel(const float* __restrict__ coef, int n_rows, int tri_end,
-                const float* __restrict__ params, float* __restrict__ out,
-                int H, int W, int row0, float inv_w1, float inv_h1) {
+raytrace_kernel(const float* __restrict__ coef, int coef_rows, int n_rows,
+                int tri_end, const float* __restrict__ params,
+                float* __restrict__ out, int K, int H, int W, int row0,
+                float inv_w1, float inv_h1) {
     extern __shared__ float smem[];
     float* P = smem;                 // N_PARAMS floats
     float* C = smem + N_PARAMS;      // n_rows x N_CHANNELS floats
+    const int frame = blockIdx.z;
+    const float* fparams = params + (size_t)frame * N_PARAMS;
+    const float* fcoef = coef + (size_t)frame * coef_rows * N_CHANNELS;
     const int n_smem = N_PARAMS + n_rows * N_CHANNELS;
     for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n_smem;
          i += blockDim.x * blockDim.y) {
-        smem[i] = i < N_PARAMS ? params[i] : coef[i - N_PARAMS];
+        smem[i] = i < N_PARAMS ? fparams[i] : fcoef[i - N_PARAMS];
     }
     __syncthreads();
 
@@ -309,8 +317,9 @@ raytrace_kernel(const float* __restrict__ coef, int n_rows, int tri_end,
         thr = thr * kr;
     }
 
-    const size_t plane = (size_t)H * W;
-    const size_t i = (size_t)row * W + col;
+    // plane p of frame f starts at (p * K + f) * H * W
+    const size_t plane = (size_t)K * H * W;
+    const size_t i = ((size_t)frame * H + row) * W + col;
     out[i] = ra;
     out[plane + i] = ga;
     out[2 * plane + i] = ba;
@@ -322,11 +331,15 @@ raytrace_kernel(const float* __restrict__ coef, int n_rows, int tri_end,
 
 }  // namespace
 
-extern "C" int rt_raytrace_planes(const float* coef, int n_rows, int tri_end,
-                                  int sph_end, const float* params, float* out,
+// coef: K x coef_rows x N_CHANNELS (rows n_rows.. are padding, never read);
+// params: K x N_PARAMS; out: 7 x K x H x W.
+extern "C" int rt_raytrace_planes(const float* coef, int coef_rows, int n_rows,
+                                  int tri_end, int sph_end,
+                                  const float* params, float* out, int K,
                                   int H, int W, int row0, float inv_w1,
                                   float inv_h1, void* stream) {
-    if (sph_end != n_rows || tri_end < 1 || tri_end > n_rows || H < 1 || W < 1)
+    if (sph_end != n_rows || tri_end < 1 || tri_end > n_rows
+        || coef_rows < n_rows || K < 1 || K > 65535 || H < 1 || W < 1)
         return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(N_PARAMS + n_rows * N_CHANNELS) * sizeof(float);
     if (smem > 48 * 1024) {
@@ -336,9 +349,11 @@ extern "C" int rt_raytrace_planes(const float* coef, int n_rows, int tri_end,
         if (e != cudaSuccess) return (int)e;
     }
     const dim3 block(BLOCK_X, BLOCK_Y);
-    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
+    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y,
+                    K);
     raytrace_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        coef, n_rows, tri_end, params, out, H, W, row0, inv_w1, inv_h1);
+        coef, coef_rows, n_rows, tri_end, params, out, K, H, W, row0, inv_w1,
+        inv_h1);
     return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,11 @@ coefficient table (slot 0 = sea plane, then padded triangle clusters, then
 padded sphere clusters) and a (N_PARAMS,) float32 params vector — the same
 channel and slot maps as the JAX package, minus the TPU's middle axis.
 
-`raytrace_planes` dispatches on the device of its inputs: a CPU tensor runs
-the plain PyTorch version `raytrace_planes_torch`, a CUDA tensor launches
-the kernel (or raises). Both return 7 (H, W) float32 planes: hit-path RGB,
-miss weight, miss direction xyz.
+`raytrace_planes` (one frame) and `raytrace_planes_batch` (K frames in one
+launch) dispatch on the device of their inputs: a CPU tensor runs the plain
+PyTorch version, a CUDA tensor launches the kernel (or raises). They return
+7 (H, W), resp. (K, H, W), float32 planes: hit-path RGB, miss weight, miss
+direction xyz.
 """
 
 from __future__ import annotations
@@ -514,55 +515,102 @@ def raytrace_planes_torch(coef, params, H: int, W: int, n_tri_rows: int,
     return tuple(out.reshape(7, H, W))
 
 
+def raytrace_planes_batch_torch(coefs, params, H: int, W: int,
+                                n_tri_rows: int, n_sph_rows: int,
+                                row0: int = 0, total_h=None):
+    """Plain K-frame megakernel: 7 (K, H, W) float32 planes, one
+    raytrace_planes_torch call per frame."""
+    per_frame = [raytrace_planes_torch(c, p, H, W, n_tri_rows, n_sph_rows,
+                                       row0, total_h)
+                 for c, p in zip(coefs, params)]
+    return tuple(torch.stack(planes) for planes in zip(*per_frame))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(coef, params, H, W, n_tri_rows, n_sph_rows, row0, total_h):
+def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h):
+    """One launch of csrc/raytrace.cu over K frames → (7, K, H, W) float32."""
     from raytracing_cuda_tpu_torch import _build
 
-    for name, t in (("coef", coef), ("params", params)):
-        if t.dtype != f32 or not t.is_contiguous() or t.device != coef.device:
+    for name, t in (("coefs", coefs), ("params", params)):
+        if t.dtype != f32 or not t.is_contiguous() or t.device != coefs.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{coef.device}")
+                             f"{coefs.device}")
     n_rows = 1 + n_tri_rows + n_sph_rows
-    if (coef.ndim != 2 or coef.shape[1] != N_CHANNELS
-            or coef.shape[0] < n_rows or params.shape != (N_PARAMS,)):
-        raise ValueError(f"bad shapes coef {tuple(coef.shape)} params "
+    K = coefs.shape[0] if coefs.ndim == 3 else 0
+    if (coefs.ndim != 3 or coefs.shape[2] != N_CHANNELS
+            or coefs.shape[1] < n_rows or params.shape != (K, N_PARAMS)):
+        raise ValueError(f"bad shapes coefs {tuple(coefs.shape)} params "
                          f"{tuple(params.shape)} for {n_rows} rows")
+    if not 1 <= K <= 65535:
+        raise ValueError(f"K = {K} frames; the kernel takes 1 to 65535")
     lib = _build.load("raytrace")
     fn = lib.rt_raytrace_planes
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty((7, H, W), dtype=f32, device=coef.device)
-    stream = torch.cuda.current_stream(coef.device).cuda_stream
-    err = fn(coef.data_ptr(), n_rows, 1 + n_tri_rows, n_rows,
-             params.data_ptr(), out.data_ptr(), H, W, row0,
+    out = torch.empty((7, K, H, W), dtype=f32, device=coefs.device)
+    stream = torch.cuda.current_stream(coefs.device).cuda_stream
+    err = fn(coefs.data_ptr(), coefs.shape[1], n_rows, 1 + n_tri_rows, n_rows,
+             params.data_ptr(), out.data_ptr(), K, H, W, row0,
              float(np.float32(1.0 / (W - 1))),
              float(np.float32(1.0 / (total_h - 1))), stream)
     _build.check(lib, err, "raytrace kernel launch")
-    raytrace_planes.launches += 1
+    return out
+
+
+def _on_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no raytrace kernel for device {t.device}")
+
+
+def raytrace_planes_batch(coefs, params, H: int, W: int, n_tri_rows: int,
+                          n_sph_rows: int, row0: int = 0, total_h=None):
+    """K-frame megakernel → 7 (K, H, W) float32 planes.
+
+    coefs (K, n_rows, N_CHANNELS) and params (K, N_PARAMS), one scene table
+    and params vector per frame, all with the same row layout. CPU tensors
+    run raytrace_planes_batch_torch; CUDA tensors launch csrc/raytrace.cu
+    once with the frame in the grid (replaces pallas_rt.py:1151 with
+    grid (K, H/TH, W/TW)), counting one launch and K frames.
+    """
+    total_h = H if total_h is None else total_h
+    if coefs.device.type == "cpu":
+        return raytrace_planes_batch_torch(coefs, params, H, W, n_tri_rows,
+                                           n_sph_rows, row0, total_h)
+    _on_cuda(coefs)
+    out = _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h)
+    raytrace_planes_batch.launches += 1
+    raytrace_planes_batch.frames += coefs.shape[0]
     return tuple(out)
+
+
+raytrace_planes_batch.launches = 0
+raytrace_planes_batch.frames = 0
 
 
 def raytrace_planes(coef, params, H: int, W: int, n_tri_rows: int,
                     n_sph_rows: int, row0: int = 0, total_h=None):
     """Megakernel → 7 (H, W) float32 planes (r, g, b, miss weight, miss dir).
 
-    CPU tensors run raytrace_planes_torch; CUDA tensors launch
-    csrc/raytrace.cu (replaces pallas_rt.py:1151) and count the launch.
-    row0/total_h place an H-row band inside a total_h-row frame.
+    The K = 1 call of the batch kernel (as pallas_rt.py:1174-1189). CPU
+    tensors run raytrace_planes_torch; CUDA tensors launch csrc/raytrace.cu
+    and count the launch on this wrapper. row0/total_h place an H-row band
+    inside a total_h-row frame.
     """
     total_h = H if total_h is None else total_h
     if coef.device.type == "cpu":
         return raytrace_planes_torch(coef, params, H, W, n_tri_rows,
                                      n_sph_rows, row0, total_h)
-    if coef.device.type != "cuda":
-        raise ValueError(f"no raytrace kernel for device {coef.device}")
-    return _launch(coef, params, H, W, n_tri_rows, n_sph_rows, row0, total_h)
+    _on_cuda(coef)
+    out = _launch(coef[None], params[None], H, W, n_tri_rows, n_sph_rows,
+                  row0, total_h)
+    raytrace_planes.launches += 1
+    return tuple(out[:, 0])
 
 
 raytrace_planes.launches = 0

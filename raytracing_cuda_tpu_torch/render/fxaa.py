@@ -5,10 +5,11 @@ uint8 frame: Rec.709 luminance, a contrast skip, a 12-tap blend factor
 through smoothstep, and a horizontal/vertical pick of the ±1 neighbour;
 image-border pixels pass through.
 
-`fxaa` dispatches on the device of its input: a CPU tensor runs the plain
-PyTorch version `fxaa_torch` (the JAX package's XLA stencil, `fxaa` /
-`fxaa_ext` at row0 = 0), a CUDA tensor launches csrc/fxaa.cu (replaces
-the Pallas kernel launched at fxaa.py:265) or raises.
+`fxaa` (one frame) and `fxaa_batch` (K frames in one launch) dispatch on the
+device of their input: a CPU tensor runs the plain PyTorch version
+(`fxaa_torch`, the JAX package's XLA stencil, `fxaa` / `fxaa_ext` at
+row0 = 0), a CUDA tensor launches csrc/fxaa.cu (replaces the Pallas kernel
+launched at fxaa.py:265) or raises.
 """
 
 from __future__ import annotations
@@ -105,37 +106,67 @@ def fxaa_torch(image: torch.Tensor) -> torch.Tensor:
     return torch.where((interior & ~skip)[..., None], out, image)
 
 
-def _launch(image: torch.Tensor) -> torch.Tensor:
+def fxaa_batch_torch(images: torch.Tensor) -> torch.Tensor:
+    """Plain FXAA on a (K, H, W, 3) uint8 batch, one fxaa_torch per frame."""
+    return torch.stack([fxaa_torch(img) for img in images])
+
+
+def _launch(images: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/fxaa.cu over a (K, H, W, 3) uint8 batch."""
     from raytracing_cuda_tpu_torch import _build
 
-    if (image.dtype != torch.uint8 or image.ndim != 3 or image.shape[2] != 3
-            or not image.is_contiguous()):
-        raise ValueError(f"fxaa takes a contiguous (H, W, 3) uint8 frame, "
-                         f"got {image.dtype} {tuple(image.shape)}")
+    if (images.dtype != torch.uint8 or images.ndim != 4
+            or images.shape[3] != 3 or not images.is_contiguous()):
+        raise ValueError(f"fxaa takes contiguous (H, W, 3) uint8 frames, "
+                         f"got {images.dtype} {tuple(images.shape)}")
+    if not 1 <= images.shape[0] <= 65535:
+        raise ValueError(f"K = {images.shape[0]} frames; the kernel takes 1 "
+                         f"to 65535")
     lib = _build.load("fxaa")
     fn = lib.rt_fxaa
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(image)
-    stream = torch.cuda.current_stream(image.device).cuda_stream
-    err = fn(image.data_ptr(), out.data_ptr(), image.shape[0], image.shape[1],
-             stream)
+    out = torch.empty_like(images)
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    err = fn(images.data_ptr(), out.data_ptr(), *images.shape[:3], stream)
     _build.check(lib, err, "fxaa kernel launch")
-    fxaa.launches += 1
     return out
+
+
+def _on_cuda(t: torch.Tensor):
+    if t.device.type != "cuda":
+        raise ValueError(f"no fxaa kernel for device {t.device}")
 
 
 def fxaa(image: torch.Tensor) -> torch.Tensor:
     """FXAA on a full (H, W, 3) uint8 frame → (H, W, 3) uint8."""
     if image.device.type == "cpu":
         return fxaa_torch(image)
-    if image.device.type != "cuda":
-        raise ValueError(f"no fxaa kernel for device {image.device}")
-    return _launch(image)
+    _on_cuda(image)
+    out = _launch(image[None])[0]
+    fxaa.launches += 1
+    return out
 
 
 fxaa.launches = 0
+
+
+def fxaa_batch(images: torch.Tensor) -> torch.Tensor:
+    """FXAA on each frame of a (K, H, W, 3) uint8 batch in one launch
+    (gridDim.z = K; the counterpart of lax.map(fxaa_pallas, base) at
+    pipeline.py:273-275). Counts one launch and K frames."""
+    if images.device.type == "cpu":
+        return fxaa_batch_torch(images)
+    _on_cuda(images)
+    out = _launch(images)
+    fxaa_batch.launches += 1
+    fxaa_batch.frames += images.shape[0]
+    return out
+
+
+fxaa_batch.launches = 0
+fxaa_batch.frames = 0
 
 
 def apply_fxaa(image: torch.Tensor, enabled: bool) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Per-frame render pipeline (port of raytracing_cuda_tpu/render/pipeline.py,
-`render_frame_static_sky` and `_pallas_base`, pipeline.py:83-152).
+"""Render pipeline (port of raytracing_cuda_tpu/render/pipeline.py:
+`render_frame_static_sky` and `_pallas_base`, pipeline.py:83-152, and
+`render_frames_batch`, pipeline.py:162-277).
 
 One frame is: derive the frame's scene and rays on the host, pack them into
 the coefficient table and params vector, then on the device run the
@@ -7,20 +8,28 @@ megakernel (7 planes), the flat pair sky lookup from the static panorama
 stack, `quantize(rgb + mw·sky)` (reference.py:139-142), and FXAA when the
 state's toggle is on. The reference's launchKernel (kernel.cu:406-462) has
 the same split: host state and constant uploads, then kernels.
+
+A batch of K frames steps the state machine K times on the host, stacks the
+K frames' packs, uploads them once, and launches each kernel once over all
+K frames; frame k equals what the single-frame path renders for state k.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from raytracing_cuda_tpu_torch.core.types import Scene
 from raytracing_cuda_tpu_torch.render.cuda_rt import (
     MAX_CLUSTERS, P_CLUSTERS, cluster_bounds, pack_params, pack_scene,
-    raytrace_planes, sph_cluster_norm, tri_cluster_pads)
-from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
-from raytracing_cuda_tpu_torch.scene.textures import sample_sky_packed_pair
-from raytracing_cuda_tpu_torch.sim.state import (FrameState, camera_rays,
-                                                 derive_frame)
+    raytrace_planes, raytrace_planes_batch, sph_cluster_norm,
+    tri_cluster_pads)
+from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa, fxaa_batch
+from raytracing_cuda_tpu_torch.scene.textures import (
+    sample_sky_packed_pair, sample_sky_packed_pair_batch)
+from raytracing_cuda_tpu_torch.sim.actions import Action
+from raytracing_cuda_tpu_torch.sim.state import (FrameState, animate,
+                                                 camera_rays, derive_frame)
 
 
 def quantize(color: torch.Tensor) -> torch.Tensor:
@@ -78,3 +87,78 @@ def render_frame_static_sky(scene: Scene, state: FrameState, sky_pack,
     base = _base(coef.to(dev), params.to(dev), nt, ns, sky_pack, sky_h, sky_w,
                  state, height, width)
     return apply_fxaa(base, bool(state.aa))
+
+
+def pack_actions(actions, dts) -> np.ndarray:
+    """Actions with their dts, or packed (K, 16) vectors → (K, 16) float32
+    (the Action wire format, slot 14 = dt)."""
+    if isinstance(actions, (list, tuple)):
+        if len(dts) != len(actions):
+            raise ValueError(f"{len(actions)} actions but {len(dts)} dts")
+        return np.array([a.pack(dt) for a, dt in zip(actions, dts)],
+                        np.float32).reshape(-1, 16)
+    vecs = np.asarray(actions, np.float32)
+    if vecs.ndim != 2 or vecs.shape[1] != 16:
+        raise ValueError(f"packed actions must be (K, 16), got {vecs.shape}")
+    return vecs
+
+
+def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
+                width: int, aspect: float | None = None, tri_clusters=None,
+                sph_clusters=None, t_subs=None):
+    """Host half of a K-frame batch: step the state machine once per packed
+    action (pipeline.py:201-206), then each new state's host_packs, stacked
+    → (coefs (K, n, N_CHANNELS), params (K, N_PARAMS), n_tri_rows,
+    n_sph_rows, states). Per-frame packs, so frame k's are bit-identical to
+    what the single-frame path packs for states[k]."""
+    if len(vecs) < 1:
+        raise ValueError("a batch needs at least one frame")
+    states = []
+    for av in vecs:
+        state = animate(state, Action.unpack(av), Action.unpack_dt(av))
+        states.append(state)
+    packs = [host_packs(scene, st, height, width, aspect, tri_clusters,
+                        sph_clusters, t_subs) for st in states]
+    coefs = torch.stack([p[0] for p in packs])
+    params = torch.stack([p[1] for p in packs])
+    return coefs, params, packs[0][2], packs[0][3], states
+
+
+def frames_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
+                      sky_pack, sky_h: int, sky_w: int, states,
+                      height: int, width: int) -> torch.Tensor:
+    """Device half of a K-frame batch on the device of `coefs`: one kernel A
+    launch, the per-frame sky lookup + quantize, one kernel B launch, then
+    each frame's `aa` flag picks FXAA or the base frame (pipeline.py:276)
+    → (K, height, width, 3) uint8. day_frac is each state's host
+    day_time / 24, as in _base."""
+    r, g, b, mw, mdx, mdy, mdz = raytrace_planes_batch(
+        coefs, params, height, width, n_tri_rows, n_sph_rows)
+    sky = sample_sky_packed_pair_batch(
+        sky_pack, sky_h, sky_w, torch.stack([mdx, mdy, mdz], dim=-1),
+        [st.day_time / 24.0 for st in states], [st.sky_vars for st in states])
+    base = quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    imgs = fxaa_batch(base)
+    for k, st in enumerate(states):     # device copies, no host round trip
+        if not bool(st.aa):
+            imgs[k] = base[k]
+    return imgs
+
+
+def render_frames_batch(scene: Scene, state: FrameState, sky_pack,
+                        sky_h: int, sky_w: int, action_vecs, height: int,
+                        width: int, aspect: float | None = None,
+                        tri_clusters=None, sph_clusters=None, t_subs=None):
+    """K frames of packed (K, 16) actions from `state`, each kernel launched
+    once for the batch → (imgs (K, H, W, 3) uint8 on the device of
+    `sky_pack`, last_state)."""
+    coefs, params, nt, ns, states = batch_packs(
+        scene, state, pack_actions(action_vecs, None), height, width,
+        aspect, tri_clusters, sph_clusters, t_subs)
+    n = coefs.numel()
+    buf = torch.cat([coefs.reshape(-1), params.reshape(-1)]).to(
+        sky_pack.device)                                    # one upload
+    imgs = frames_from_packs(buf[:n].view(coefs.shape),
+                             buf[n:].view(params.shape), nt, ns, sky_pack,
+                             sky_h, sky_w, states, height, width)
+    return imgs, states[-1]

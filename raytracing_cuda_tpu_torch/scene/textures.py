@@ -65,8 +65,10 @@ def procedural_skies(height: int = 256, width: int = 512) -> np.ndarray:
 
 def load_skies(source: str = "procedural",
                procedural_shape: Tuple[int, int] = (2048, 4096)) -> SkyTextures:
-    """Sky textures by source; only the procedural family exists here."""
-    if source != "procedural":
+    """Sky textures by source. Only the procedural family exists here, so
+    'auto' (the JAX package's "reference panoramas where present") resolves
+    to it."""
+    if source not in ("auto", "procedural"):
         raise ValueError(f"unknown sky source {source!r}; the port ships "
                          f"only 'procedural'")
     return SkyTextures(texels=procedural_skies(*procedural_shape))
@@ -129,3 +131,12 @@ def sample_sky_packed_pair(packed_all: torch.Tensor, h: int, w: int,
         rgb = torch.stack([ta & 0xFF, (ta >> 8) & 0xFF, (ta >> 16) & 0xFF],
                           dim=-1).to(torch.float32)
     return rgb * _INV_255
+
+
+def sample_sky_packed_pair_batch(packed_all: torch.Tensor, h: int, w: int,
+                                 d: torch.Tensor, day_fracs, sky_vars):
+    """K-frame flat lookup, the vmapped resolve of pipeline.py:257-261:
+    d (K, ..., 3) with one host day_frac and one sky_vars per frame →
+    (K, ..., 3) f32, frame k equal to sample_sky_packed_pair on it."""
+    return torch.stack([sample_sky_packed_pair(packed_all, h, w, dk, df, sv)
+                        for dk, df, sv in zip(d, day_fracs, sky_vars)])

@@ -265,3 +265,9 @@ def derive_frame(scene: Scene, state: FrameState):
     scene = scene._replace(color=color, sph_pos=sph_pos, center=center,
                            plane_pos=plane_pos)
     return scene, lights, ambient
+
+
+def format_time(day_time: float) -> str:
+    """getTime / HH:MM formatting (scene.cpp:731-733)."""
+    d = float(day_time)
+    return "%02d:%02d" % (int(d), int((int(d * 100) % 100) / 100.0 * 60))

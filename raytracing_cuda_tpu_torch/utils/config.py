@@ -16,7 +16,7 @@ class RenderConfig:
     height: int = 720
     scene: str = "island"        # 'island' | 'classic'
     antialiasing: bool = True    # FXAA default on (scene.cpp:24)
-    sky_source: str = "procedural"
+    sky_source: str = "procedural"  # or 'auto' (→ procedural)
     procedural_sky_shape: tuple = (2048, 4096)
     aspect: float | None = None  # None → width/height
     # NOTE: the reference initializes camera corners with aspect = 1.7777
@@ -24,7 +24,7 @@ class RenderConfig:
     # aspect=1.7777 to reproduce that quirk.
 
     _SCENES = ("island", "classic")
-    _SKY_SOURCES = ("procedural",)
+    _SKY_SOURCES = ("auto", "procedural")
 
     def __post_init__(self):
         if self.width < 2 or self.height < 2:

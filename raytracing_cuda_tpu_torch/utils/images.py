@@ -1,9 +1,10 @@
-"""Image helpers (port of raytracing_cuda_tpu/utils/images.py): frame RMSE and
-a PNG reader that needs no PIL.
+"""Image helpers (port of raytracing_cuda_tpu/utils/images.py): frame RMSE,
+the SSAA box resolve, and a PNG writer and reader that need no PIL.
 
-`load_png` decodes 8-bit RGB (and RGBA, alpha dropped) non-interlaced PNGs
-with zlib and numpy, handling the five scanline filters — the format of
-every golden frame in tests/golden/.
+`save_png` writes 8-bit RGB PNGs with zlib and numpy (filter 0 on every
+row). `load_png` decodes 8-bit RGB (and RGBA, alpha dropped) non-interlaced
+PNGs, handling the five scanline filters — the format of every golden
+frame in tests/golden/ and of the native frame writer's output.
 """
 
 from __future__ import annotations
@@ -14,6 +15,47 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def to_host(image) -> np.ndarray:
+    """Framebuffer (a tensor on any device, or an array) → host array."""
+    if hasattr(image, "detach"):
+        return image.detach().cpu().numpy()
+    return np.asarray(image)
+
+
+def box_downsample(image, n: int) -> np.ndarray:
+    """Average n×n pixel boxes — the SSAA resolve of `render/record --ssaa
+    N` (images.py:30-44 of the JAX package, the same numpy arithmetic):
+    (H·n, W·n, C) uint8 → (H, W, C) uint8, rounded half-up."""
+    img = to_host(image)
+    if n == 1:
+        return img
+    h, w = img.shape[0] // n, img.shape[1] // n
+    acc = img.astype(np.float32).reshape(h, n, w, n, -1).mean(axis=(1, 3))
+    return (acc + 0.5).astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def save_png(image, path: str, level: int = 6) -> None:
+    """(H, W, 3) uint8 → 8-bit RGB PNG at zlib `level` (0-9)."""
+    img = np.ascontiguousarray(to_host(image))
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"save_png needs (H, W, 3) uint8, got {img.shape} "
+                         f"{img.dtype}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),        # filter 0
+                           img.reshape(h, w * 3)], axis=1)
+    data = (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def rmse(a, b) -> float:
@@ -34,6 +76,8 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     ftype = rows[:, 0].astype(np.int32)
     if ftype.max(initial=0) > 4:
         raise ValueError(f"bad PNG filter type {ftype.max()}")
+    if not ftype.any():                    # no filter on any row
+        return rows[:, 1:].reshape(h, w, bpp).copy()
     line = rows[:, 1:].reshape(h, w, bpp).astype(np.int32)
     # decoded pixels with a zero row on top and a zero column on the left
     dec = np.zeros((h + 1, w + 1, bpp), np.int32)

@@ -50,7 +50,8 @@ class FrameStats:
 
 class FrameTimer:
     """Timer over a run of frames: CUDA events on a CUDA device, else the
-    host clock."""
+    host clock. Each tick closes an interval of one or more frames; its
+    frame_ms entry is the interval divided by its frame count."""
 
     def __init__(self, width: int, height: int, device="cpu"):
         self.width = width
@@ -59,6 +60,7 @@ class FrameTimer:
         self.cuda = self.device.type == "cuda"
         self.frames = 0
         self._marks: list = []
+        self._counts: list = []
 
     def _mark(self):
         if self.cuda:
@@ -69,12 +71,14 @@ class FrameTimer:
 
     def start(self) -> "FrameTimer":
         self._marks = [self._mark()]
+        self._counts = []
         return self
 
-    def tick(self) -> None:
-        """Count one frame whose work has been queued."""
+    def tick(self, frames: int = 1) -> None:
+        """Count `frames` frames whose work has been queued."""
         self._marks.append(self._mark())
-        self.frames += 1
+        self._counts.append(frames)
+        self.frames += frames
 
     def stop(self) -> FrameStats:
         device_sync(self.device)
@@ -83,4 +87,4 @@ class FrameTimer:
         else:
             ms = [(b - a) * 1e3 for a, b in zip(self._marks, self._marks[1:])]
         return FrameStats(self.frames, sum(ms) / 1e3, self.width, self.height,
-                          ms)
+                          [m / n for m, n in zip(ms, self._counts)])

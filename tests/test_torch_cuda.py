@@ -13,17 +13,22 @@ versions (other exp2/log2 implementations), frames must meet the golden
 contract: RMSE < 2e-3 and < 0.3 % of pixels off by more than 2 levels.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE, golden_stats,
-                        make_state)
+                        make_state, states_equal, varied_actions)
+from raytracing_cuda_tpu_torch import __main__ as cli
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
 from raytracing_cuda_tpu_torch.render.pipeline import host_packs
 from raytracing_cuda_tpu_torch.scene import builders as tb
+from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
+from raytracing_cuda_tpu_torch.utils.images import load_png
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +107,88 @@ def test_wrappers_reject_bad_inputs(dev):
         cuda_rt.raytrace_planes(coef.double(), params, H, W, nt, ns)
     with pytest.raises(ValueError):
         fxaa.fxaa(torch.zeros((4, 4, 3), dtype=torch.float32, device=dev))
+
+
+def _batch_packs(dev, n=3):
+    scene = tb.build_scene()
+    st = make_state(6.0)
+    states = [make_state(**CASES[c]) for c in sorted(CASES)][:n - 1] + [
+        tsim.animate(st, varied_actions(2)[0], 0.5)]
+    packs = [host_packs(scene, s, H, W, None, tb.ISLAND_TRI_CLUSTERS,
+                        tb.ISLAND_SPH_CLUSTERS) for s in states]
+    return (torch.stack([p[0] for p in packs]).to(dev),
+            torch.stack([p[1] for p in packs]).to(dev), packs[0][2],
+            packs[0][3])
+
+
+def test_raytrace_batch_kernel_matches_plain_and_singles(dev):
+    coefs, params, nt, ns = _batch_packs(dev)
+    before = (cuda_rt.raytrace_planes_batch.launches,
+              cuda_rt.raytrace_planes_batch.frames)
+    kern = cuda_rt.raytrace_planes_batch(coefs, params, H, W, nt, ns)
+    torch.cuda.synchronize()
+    assert (cuda_rt.raytrace_planes_batch.launches,
+            cuda_rt.raytrace_planes_batch.frames) == (before[0] + 1,
+                                                      before[1] + 3)
+    plain = cuda_rt.raytrace_planes_batch_torch(coefs, params, H, W, nt, ns)
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    for k in range(3):
+        single = cuda_rt.raytrace_planes(coefs[k], params[k], H, W, nt, ns)
+        assert all(torch.equal(p[k], q) for p, q in zip(kern, single)), k
+    band = cuda_rt.raytrace_planes_batch(coefs, params, 32, W, nt, ns,
+                                         row0=40, total_h=H)
+    assert all(torch.equal(b, p[:, 40:72]) for b, p in zip(band, kern))
+
+
+def test_batch_wrappers_reject_bad_frame_counts(dev):
+    coefs, params, nt, ns = _batch_packs(dev)
+    with pytest.raises(ValueError):
+        cuda_rt.raytrace_planes_batch(coefs[:0], params[:0], H, W, nt, ns)
+    with pytest.raises(ValueError):
+        cuda_rt.raytrace_planes_batch(coefs, params[:2], H, W, nt, ns)
+    with pytest.raises(ValueError):
+        fxaa.fxaa_batch(torch.zeros((0, 4, 4, 3), dtype=torch.uint8,
+                                    device=dev))
+
+
+@pytest.mark.parametrize("shape", [(1, 96, 160), (5, 96, 160), (3, 37, 53),
+                                   (8, 720, 1280)])
+def test_fxaa_batch_kernel_matches_plain(dev, shape):
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, shape + (3,)).astype(np.uint8)).to(dev)
+    before = (fxaa.fxaa_batch.launches, fxaa.fxaa_batch.frames)
+    out = fxaa.fxaa_batch(imgs)
+    torch.cuda.synchronize()
+    assert (fxaa.fxaa_batch.launches, fxaa.fxaa_batch.frames) == (
+        before[0] + 1, before[1] + shape[0])
+    assert torch.equal(out, fxaa.fxaa_batch_torch(imgs))
+    for k in range(shape[0]):
+        assert torch.equal(out[k], fxaa.fxaa(imgs[k])), k
+
+
+def test_step_and_frame_batch_matches_sequential(dev):
+    acts = varied_actions(8)
+    dts = [0.02 * (i + 1) for i in range(8)]
+    a, b = small_engine("cuda"), small_engine("cuda")
+    st0 = make_state(9.5)
+    a.set_state(st0)
+    b.set_state(st0)
+    seq = [a.step_and_frame(x, dt) for x, dt in zip(acts, dts)]
+    imgs = b.step_and_frame_batch(acts, dts)
+    assert all(torch.equal(imgs[k], seq[k]) for k in range(8))
+    assert states_equal(a.state, b.state)
+    stats = b.run(10, batch=4)
+    assert stats.frames == 10 and len(stats.frame_ms) == 4
+
+
+def test_record_720p_matches_engine(dev, tmp_path):
+    """10 frames: one batch of cli.RECORD_BATCH = 8, then 2 single steps."""
+    out = str(tmp_path / "rec")
+    assert cli.main(["record", out, "--frames", "10", "--size", "1280x720",
+                     "--sky-shape", "512x256", "--path", "cuda"]) == 0
+    eng = Engine(RenderConfig(width=1280, height=720, sky_source="auto",
+                              procedural_sky_shape=(256, 512)), "cuda")
+    for i in range(10):
+        img = eng.step_and_frame(cli.scripted_action(i), cli.RECORD_DT)
+        assert np.array_equal(load_png(os.path.join(out, f"{i:04d}.png")),
+                              img.cpu().numpy()), i
