@@ -20,7 +20,15 @@ Phases (any failure exits non-zero):
      in-process in a temporary directory, against Engine frames;
   7. a torch.profiler trace of 30 loop frames: the top device ops and the
      device-busy share of the window;
-  8. a JSON line per kernel form, the card line, and the final status line.
+  8. parallel/ at 1280x720 on meshes that repeat the one card: kernel B's
+     halo'd band form against its plain version (bands of 2, 4 and 8) and
+     the full-frame kernel, kernel A's launches for the bands of a 4-band
+     split against its plain version, render_frame_sharded against Engine
+     frames (FXAA on and off), Engine(sharded=...) driven with its band
+     counter, Engine.render_script_dp frame DP and hybrid against
+     step_and_frame, and `record --dp` on a one-card machine;
+  9. a JSON line per kernel form (each with its bound, from this run's
+     inputs), the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -58,6 +67,24 @@ GOLDEN_OFF_FRAC = 0.003
 # FXAA kernel vs plain (tests/test_fxaa.py:111-112)
 FXAA_RMSE = 2.5e-3
 FXAA_DIFF_FRAC = 0.01
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# Float operations per item as csrc/raytrace.cu writes them (a multiply,
+# an add, a min/max or a compare counts one): a ray cast at one level (its
+# cross product, dot products and plane test), then each triangle and
+# sphere row it must test (intersection and nearest-hit select), a shaded
+# hit (normal, two lights' Phong terms and specular, the mirror bounce),
+# and a shadow ray (its origin and plane test), then each row it must test.
+A_OPS_RAY, A_OPS_TRI, A_OPS_SPH = 24, 44, 24
+A_OPS_SHADED, A_OPS_SHADOW, A_OPS_SHADOW_TRI, A_OPS_SHADOW_SPH = (
+    200, 20, 42, 22)
+# csrc/fxaa.cu per interior pixel: 9 luminances (7 each), the contrast
+# test, blend factor, edge pick and three blended channels (fabsf is an
+# operand modifier and not counted); border pixels only copy
+B_OPS_PIXEL = 137
 
 
 def make_state(day, cp=None, sea=None, aa=True):
@@ -121,10 +148,11 @@ def reset_counts():
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
 
     for fn in (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
-               fx.fxaa, fx.fxaa_batch):
+               fx.fxaa, fx.fxaa_batch, fx.fxaa_ext):
         fn.launches = 0
     cuda_rt.raytrace_planes_batch.frames = 0
     fx.fxaa_batch.frames = 0
+    fx.fxaa_ext.frames = 0
 
 
 def read_counts() -> dict:
@@ -135,7 +163,9 @@ def read_counts() -> dict:
             "raytrace_megakernel_k8_frames":
                 cuda_rt.raytrace_planes_batch.frames,
             "fxaa": fx.fxaa.launches, "fxaa_k8": fx.fxaa_batch.launches,
-            "fxaa_k8_frames": fx.fxaa_batch.frames}
+            "fxaa_k8_frames": fx.fxaa_batch.frames,
+            "fxaa_band": fx.fxaa_ext.launches,
+            "fxaa_band_frames": fx.fxaa_ext.frames}
 
 
 def states_equal(a, b) -> bool:
@@ -170,6 +200,74 @@ def device_activity(trace_path: str):
     top = sorted(((n, ms, c) for n, (ms, c) in ops.items()),
                  key=lambda t: -t[1])
     return top, busy / 1e3, window / 1e3
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms on the card, what bounds it) for moving nbytes once and
+    doing ops float32 operations: the larger of the two times at the
+    card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def raytrace_bound(work: dict, coefs, params, K: int, h: int, w: int):
+    """Kernel A's bound for K frames of h x w, from what these inputs
+    needed: raytrace_planes_torch's work counts with the scene's cull
+    groups, so a ray is charged only the rows under the cluster bounds it
+    can reach (before the sea plane's hit, or before the light for a
+    shadow ray), and not the bound tests, which a tile of rays can share.
+    An occluded shadow ray is charged one triangle row, the least its
+    early exit can test."""
+    ops = (work["rays"] * A_OPS_RAY + work["tri_tests"] * A_OPS_TRI
+           + work["sph_tests"] * A_OPS_SPH + work["shaded"] * A_OPS_SHADED
+           + work["shadow"] * A_OPS_SHADOW
+           + work["occluded"] * A_OPS_SHADOW_TRI
+           + work["shadow_tri_tests"] * A_OPS_SHADOW_TRI
+           + work["shadow_sph_tests"] * A_OPS_SHADOW_SPH)
+    nbytes = (coefs.numel() + params.numel()) * 4 + 7 * 4 * K * h * w
+    return bound(nbytes, ops)
+
+
+def fxaa_bound(K: int, h: int, w: int, row0: int = 0, total_h=None,
+               halo: bool = False):
+    """Kernel B's bound for K frames (or bands of h rows at row0 with halo
+    rows) of width w: each input byte read once, each output written once,
+    B_OPS_PIXEL operations per interior pixel."""
+    total_h = h if total_h is None else total_h
+    rows = sum(1 for y in range(row0, row0 + h) if 0 < y < total_h - 1)
+    nbytes = K * 3 * w * ((h + 2 if halo else h) + h)
+    return bound(nbytes, K * rows * (w - 2) * B_OPS_PIXEL)
+
+
+def halo_bands(img: torch.Tensor, n: int):
+    """(row0, band with its halo rows) for n bands of a (H, W, 3) frame,
+    zero rows beyond the frame's top and bottom."""
+    sub = img.shape[0] // n
+    zero = torch.zeros_like(img[:1])
+    for c in range(n):
+        top = img[c * sub - 1:c * sub] if c else zero
+        bot = img[(c + 1) * sub:(c + 1) * sub + 1] if c < n - 1 else zero
+        yield c * sub, torch.cat([top, img[c * sub:(c + 1) * sub], bot])
+
+
+def kernel_device_ms(fn, reps: int, kname: str) -> float:
+    """Device milliseconds per launch of the kernel named kname over reps
+    calls of fn(), from a torch.profiler trace (CUDA events around
+    back-to-back launches time the host's launch rate once that is the
+    slower side)."""
+    from raytracing_cuda_tpu_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        top, _, _ = device_activity(os.path.join(tmp, profiling.TRACE_FILE))
+    ms, n = next((ms, n) for name, ms, n in top if kname in name)
+    return ms / n
 
 
 def card_line() -> str:
@@ -240,15 +338,19 @@ def main() -> int:
     sky_pack = pack_sky_all(torch.from_numpy(sky_np).to(dev))
     del sky_np
     clusters = (ISLAND_TRI_CLUSTERS, ISLAND_SPH_CLUSTERS, ISLAND_TRI_SUBS)
+    cull = cuda_rt.cull_groups(scene.n_triangles, scene.n_spheres, *clusters)
     a_err, a_mismatch, b_err = 0.0, 0, 0
     timing_inputs = None
+    work = dict.fromkeys(cuda_rt.WORK_KEYS, 0)     # the timed frame's rays
+    golden_bases = []
     for name, kw in CASES.items():
         st = make_state(**kw)
         coef, params, nt, ns = host_packs(scene, st, H, W, None, *clusters)
         coef, params = coef.to(dev), params.to(dev)
         kern = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns))
-        plain = torch.stack(cuda_rt.raytrace_planes_torch(coef, params, H, W,
-                                                          nt, ns))
+        plain = torch.stack(cuda_rt.raytrace_planes_torch(
+            coef, params, H, W, nt, ns,
+            work=work if timing_inputs is None else None, cull=cull))
         torch.cuda.synchronize()
         require(bool(torch.isfinite(kern).all()), f"{name}: kernel A planes "
                 f"finite")
@@ -268,6 +370,7 @@ def main() -> int:
             return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sky)
 
         bk, bp = base_of(kern), base_of(plain)
+        golden_bases.append(bk)
         rm, off = golden_stats(bk.cpu().numpy(), bp.cpu().numpy())
         require(rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC,
                 f"{name}: kernel A frame vs plain frame rmse {rm:.3g} "
@@ -297,6 +400,11 @@ def main() -> int:
           f"(plain {ms_a_plain:.4f} ms) [{card}]", flush=True)
     print(f"kernel B fxaa 720p island_morning: {ms_b:.4f} ms "
           f"(plain {ms_b_plain:.4f} ms) [{card}]", flush=True)
+    bound_a = raytrace_bound(work, coef, params, 1, H, W)
+    bound_b = fxaa_bound(1, H, W)
+    print(f"bounds 720p island_morning: kernel A {bound_a[0]:.6f} ms "
+          f"({bound_a[1]}; rays {work}), kernel B {bound_b[0]:.6f} ms "
+          f"({bound_b[1]}) [{card}]", flush=True)
 
     # where one frame's time goes: the host half (state step + packs, host
     # clock) and the device stages between the kernels (CUDA events)
@@ -389,6 +497,11 @@ def main() -> int:
     k8 = cuda_rt.raytrace_planes_batch(coefs8, params8, H, W, nt, ns)
     p8, ms_a8_plain = timed(lambda: cuda_rt.raytrace_planes_batch_torch(
         coefs8, params8, H, W, nt, ns))
+    work8 = dict.fromkeys(cuda_rt.WORK_KEYS, 0)     # counted apart, untimed
+    cuda_rt.raytrace_planes_batch_torch(coefs8, params8, H, W, nt, ns,
+                                        work=work8, cull=cull)
+    bound_a8 = raytrace_bound(work8, coefs8, params8, BATCH, H, W)
+    bound_b8 = fxaa_bound(BATCH, H, W)
     a8_err = max(float((a - b).abs().max()) for a, b in zip(k8, p8))
     require(a8_err == 0.0, f"kernel A K=8 vs plain max|diff| {a8_err}")
     ms_a8 = cuda_ms(lambda: cuda_rt.raytrace_planes_batch(
@@ -562,28 +675,212 @@ def main() -> int:
                          "unprofiled_frame_ms": frame_ms,
                          "top": top[:5]}
 
-    # --- 8. report ---
+    # --- 8. parallel/: row bands, frame DP, the hybrid ---
+    from raytracing_cuda_tpu_torch.parallel.mesh import (
+        render_frame_sharded, replicate)
+
+    # kernel B's band form against its plain version and the full frame
+    band_err, assembled = 0, True
+    for base in golden_bases:
+        full = fx.fxaa(base)
+        for n in (2, 4, 8):
+            parts = []
+            for row0, ext in halo_bands(base, n):
+                out = fx.fxaa_ext(ext, row0, H)
+                ref = fx.fxaa_ext_torch(ext, row0, H)
+                band_err = max(band_err, int((out.int() - ref.int()).abs()
+                                             .max()))
+                parts.append(out)
+            assembled &= torch.equal(torch.cat(parts), full)
+    require(band_err == 0, f"kernel B band form (2, 4, 8 bands of the 4 "
+            f"golden bases) vs plain max|diff| {band_err}")
+    require(assembled, "kernel B bands assembled equal the full-frame "
+            "kernel bit for bit")
+    row0, ext = list(halo_bands(golden_bases[0], 4))[1]
+    ext4 = torch.stack([list(halo_bands(b, 4))[1][1] for b in golden_bases])
+    require(torch.equal(fx.fxaa_ext(ext4, row0, H),
+                        fx.fxaa_ext_torch(ext4, row0, H)),
+            "kernel B K=4 band form equals its plain version bit for bit")
+    ms_band = cuda_ms(lambda: fx.fxaa_ext(ext, row0, H), 200)
+    ms_band_plain = cuda_ms(lambda: fx.fxaa_ext_torch(ext, row0, H), 20)
+    ms_full = cuda_ms(lambda: fx.fxaa(golden_bases[0]), 200)
+    bound_band = fxaa_bound(1, H // 4, W, row0, H, halo=True)
+    print(f"kernel B band form, 180-row band at row0 {row0} of 720p: "
+          f"{ms_band:.4f} ms (plain {ms_band_plain:.4f} ms, bound "
+          f"{bound_band[0]:.6f} ms, {bound_band[1]}) vs full frame "
+          f"{ms_full:.4f} ms (CUDA events) [{card}]", flush=True)
+    dev_band = kernel_device_ms(lambda: fx.fxaa_ext(ext, row0, H), 50,
+                                "fxaa_kernel")
+    dev_full = kernel_device_ms(lambda: fx.fxaa(golden_bases[0]), 50,
+                                "fxaa_kernel")
+    print(f"kernel B device time per launch (torch.profiler): 180-row band "
+          f"{dev_band:.4f} ms, full frame {dev_full:.4f} ms [{card}]",
+          flush=True)
+    # kernel A at the sharded loop's launches: the bands of the 4-band
+    # split, each against its plain version
+    sub = H // 4
+    a_band_err, work_band = 0.0, dict.fromkeys(cuda_rt.WORK_KEYS, 0)
+    for r0 in range(0, H, sub):
+        kb = cuda_rt.raytrace_planes_batch(coef[None], params[None], sub, W,
+                                           nt, ns, row0=r0, total_h=H)
+        pb, ms = timed(lambda r0=r0: cuda_rt.raytrace_planes_batch_torch(
+            coef[None], params[None], sub, W, nt, ns, row0=r0, total_h=H))
+        a_band_err = max([a_band_err] + [float((a - b).abs().max())
+                                         for a, b in zip(kb, pb)])
+        if r0 == sub:
+            ms_a_band_plain = ms
+    cuda_rt.raytrace_planes_batch_torch(
+        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H,
+        work=work_band, cull=cull)
+    require(a_band_err == 0.0, f"kernel A bands of the 4-band split (row0 "
+            f"0, {sub}, {2 * sub}, {3 * sub}) vs plain max|diff| "
+            f"{a_band_err}")
+    ms_a_band = cuda_ms(lambda: cuda_rt.raytrace_planes_batch(
+        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H), 20)
+    bound_a_band = raytrace_bound(work_band, coef[None], params[None], 1,
+                                  sub, W)
+    print(f"kernel A, {sub}-row band at row0 {sub} of 720p island_morning: "
+          f"{ms_a_band:.4f} ms (plain {ms_a_band_plain:.4f} ms, bound "
+          f"{bound_a_band[0]:.6f} ms, {bound_a_band[1]}) vs full frame "
+          f"{ms_a:.4f} ms (CUDA events) [{card}]", flush=True)
+
+    # render_frame_sharded against the Engine frame, FXAA on and off
+    mismatch = []
+    for name, kw in CASES.items():
+        for aa in (True, False):
+            st = make_state(**dict(kw, aa=aa))
+            eng.set_state(st)
+            ref = eng.frame()
+            for n, il in ((2, 1), (4, 1), (8, 1), (4, 2)):
+                img = render_frame_sharded(
+                    scene, st, replicate(sky_pack, [dev]), *SKY_SHAPE,
+                    mesh=[DEVICE] * n, height=H, width=W, interleave=il,
+                    tri_clusters=ISLAND_TRI_CLUSTERS,
+                    sph_clusters=ISLAND_SPH_CLUSTERS, t_subs=ISLAND_TRI_SUBS)
+                if not torch.equal(img, ref):
+                    mismatch.append((name, aa, n, il))
+    require(not mismatch, f"render_frame_sharded (n 2/4/8, interleave 2 at "
+            f"n 4; 4 golden states, FXAA on and off) equals the Engine frame "
+            f"bit for bit; mismatches {mismatch}")
+
+    # the main path of this slice: a sharded Engine's loop
+    cfg = RenderConfig(width=W, height=H, procedural_sky_shape=SKY_SHAPE)
+    eng_sh = Engine(cfg, DEVICE, sharded=[DEVICE] * 4,
+                    share_assets_from=eng)
+    par_fps = {}
+    for label, e in (("single", eng), ("sharded4", eng_sh),
+                     ("sharded4", eng_sh), ("single", eng)):
+        e.set_state(make_state(6.0))
+        reset_counts()
+        st = e.run(30)
+        counts = read_counts()
+        if e is eng_sh:
+            band_counts = counts
+        par_fps.setdefault(label, []).append(st.fps)
+        ms = sorted(st.frame_ms)
+        print(f"Engine{'(sharded=[cuda:0] * 4)' if e is eng_sh else ''}"
+              f".run(30) 1280x720 island: {st.fps:.2f} fps, frame ms "
+              f"median {ms[len(ms) // 2]:.4f} (CUDA events; bands "
+              f"serialised on one card) [{card}]", flush=True)
+    print(f"launch counts in Engine(sharded=4 bands).run(30): {band_counts}",
+          flush=True)
+    require(band_counts["fxaa_band"] > 0
+            and band_counts["raytrace_megakernel_k8"] > 0,
+            "the sharded loop launched kernel A and kernel B's band form")
+    require(band_counts["fxaa"] == 0 and band_counts["raytrace_megakernel"]
+            == 0, "the sharded loop ran no full-frame launch")
+
+    # frame DP and the hybrid against step_and_frame
+    acts = varied_actions(16)
+    st0 = make_state(9.5)
+    eng.set_state(st0)
+    seq = torch.stack([eng.step_and_frame(a, 1 / 30) for a in acts])
+    end = eng.state
+    eng_dp = Engine(dataclasses.replace(cfg, shard_interleave=2), DEVICE,
+                    share_assets_from=eng)
+    script_counts = {}
+    for label, kw in (("frame DP over [cuda:0] * 2",
+                       dict(mesh=[DEVICE] * 2)),
+                      ("hybrid 2 x 2, interleave 2",
+                       dict(n_rows=2, mesh=[[DEVICE] * 2] * 2))):
+        eng_dp.set_state(st0)
+        reset_counts()
+        imgs = eng_dp.render_script_dp(acts, dt=1 / 30, **kw)
+        torch.cuda.synchronize()
+        script_counts[label] = read_counts()
+        require(torch.equal(imgs, seq) and states_equal(eng_dp.state, end),
+                f"Engine.render_script_dp, {label}: 16 frames and end state "
+                f"equal 16 step_and_frame calls")
+    print(f"launch counts in render_script_dp: {script_counts}", flush=True)
+
+    # the CLI: --dp needs distinct cards; --dp 1 --dp-rows 1 is plain record
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--frames", "4", "--size", f"{W}x{H}", "--path", "cuda"]
+        if torch.cuda.device_count() == 1:
+            try:
+                rc, msg = cli.main(["record", f"{tmp}/dp", "--dp", "2",
+                                    *argv]), ""
+            except SystemExit as e:
+                rc, msg = e.code, str(e)
+            require(rc not in (0, None) and "available" in msg
+                    and not os.path.exists(f"{tmp}/dp"),
+                    f"cli record --dp 2 on one card exits {rc} before any "
+                    f"frame: {msg}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["record", f"{tmp}/dp1", "--dp", "1", "--dp-rows",
+                           "1", *argv])
+        require(rc == 0 and len(os.listdir(f"{tmp}/dp1")) == 4,
+                "cli record --dp 1 --dp-rows 1 writes its 4 frames")
+    report["parallel"] = {"fxaa_band_ms": ms_band, "fxaa_full_ms": ms_full,
+                          "fxaa_band_device_ms": dev_band,
+                          "raytrace_band_ms": ms_a_band,
+                          "raytrace_band_max_abs_err": a_band_err,
+                          "fxaa_full_device_ms": dev_full,
+                          "fps": par_fps, "counts": band_counts,
+                          "script_counts": script_counts}
+
+    # --- 9. report ---
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
          "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
          "launches": launches["raytrace"], "max_abs_err": a_err,
-         "ms": ms_a, "plain_ms": ms_a_plain},
+         "ms": ms_a, "plain_ms": ms_a_plain, "bound_ms": bound_a[0],
+         "bound_by": bound_a[1], "library_ms": None},
         {"name": "raytrace_megakernel_k8", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
          "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
          "launches": batch_counts["raytrace_megakernel_k8"],
-         "max_abs_err": a8_err, "ms": ms_a8, "plain_ms": ms_a8_plain},
+         "max_abs_err": a8_err, "ms": ms_a8, "plain_ms": ms_a8_plain,
+         "bound_ms": bound_a8[0], "bound_by": bound_a8[1],
+         "library_ms": None},
         {"name": "fxaa", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
          "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
          "launches": launches["fxaa"], "max_abs_err": b_err,
-         "ms": ms_b, "plain_ms": ms_b_plain},
+         "ms": ms_b, "plain_ms": ms_b_plain, "bound_ms": bound_b[0],
+         "bound_by": bound_b[1], "library_ms": None},
         {"name": "fxaa_k8", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
          "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
          "launches": batch_counts["fxaa_k8"], "max_abs_err": fb8_err,
-         "ms": ms_b8, "plain_ms": ms_b8_plain},
+         "ms": ms_b8, "plain_ms": ms_b8_plain, "bound_ms": bound_b8[0],
+         "bound_by": bound_b8[1], "library_ms": None},
+        {"name": "raytrace_megakernel_band", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
+         "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
+         "launches": band_counts["raytrace_megakernel_k8"],
+         "max_abs_err": a_band_err, "ms": ms_a_band,
+         "plain_ms": ms_a_band_plain, "bound_ms": bound_a_band[0],
+         "bound_by": bound_a_band[1], "library_ms": None},
+        {"name": "fxaa_band", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
+         "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
+         "launches": band_counts["fxaa_band"], "max_abs_err": band_err,
+         "ms": ms_band, "plain_ms": ms_band_plain,
+         "bound_ms": bound_band[0], "bound_by": bound_band[1],
+         "library_ms": None},
     ]
     report["kernels"] = kernels
     report["kernel_a_hit_miss_mismatch_max"] = a_mismatch

@@ -6,10 +6,13 @@
 
 `--path auto` (the default) and `--path cuda` render with the CUDA kernels
 on card `--device N` and fail where no card is present; `--path plain`
-renders on the CPU with their plain PyTorch versions. The interactive
-`window`, the XLA paths `fast`/`oracle` and the multi-device `--dp` /
-`--dp-rows` of the JAX CLI are not ported yet (ROADMAP Queue 1): they are
-usage errors here.
+renders on the CPU with their plain PyTorch versions. `record --dp N
+[--dp-rows R]` spreads batches of frames over N devices, or N groups of R
+devices that split each frame into row bands (parallel/): distinct cards
+on the CUDA paths, failing before any frame is written where fewer exist;
+N x R entries of the one CPU device with `--path plain`. The interactive
+`window` and the XLA paths `fast`/`oracle` of the JAX CLI are not ported
+yet (ROADMAP Queue 1): they are usage errors here.
 """
 
 from __future__ import annotations
@@ -87,8 +90,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gif", default=None,
                     help="record: also assemble frames into an animated GIF "
                          "(needs PIL)")
-    ap.add_argument("--dp", type=int, default=1, help=NOT_PORTED)
-    ap.add_argument("--dp-rows", type=int, default=1, help=NOT_PORTED)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="record: spread each batch of frames over N "
+                         "devices (parallel/frames.py)")
+    ap.add_argument("--dp-rows", type=int, default=1,
+                    help="record: with --dp N, also split each frame into "
+                         "row bands over R devices (N x R devices)")
     ap.add_argument("--resume", action="store_true",
                     help="record: skip frames already on disk (contiguous "
                          "prefix, re-rendering its last frame) and "
@@ -112,8 +119,11 @@ def _check_usage(ap, args) -> None:
         ap.error(f"window: {NOT_PORTED}")
     if args.path in ("fast", "oracle"):
         ap.error(f"--path {args.path}: {NOT_PORTED}")
-    if args.dp > 1 or args.dp_rows > 1:
-        ap.error(f"--dp/--dp-rows: {NOT_PORTED}")
+    if args.dp < 1 or args.dp_rows < 1:
+        ap.error(f"--dp and --dp-rows must be >= 1, got {args.dp} and "
+                 f"{args.dp_rows}")
+    if (args.dp > 1 or args.dp_rows > 1) and args.command != "record":
+        ap.error("--dp/--dp-rows apply to record only")
     if args.ssaa < 1:
         ap.error(f"--ssaa must be >= 1, got {args.ssaa}")
     if args.ssaa > 1 and args.command == "bench":
@@ -168,7 +178,25 @@ def build_state(args, default_state):
     return sim.settle(st) if needs_settle else st
 
 
-def _record(args, eng) -> int:
+def _record_mesh(args, device: str):
+    """record's device mesh for --dp/--dp-rows (None without them): dp
+    lists of dp_rows devices. Raises SystemExit with the mesh's error where
+    too few devices exist."""
+    if args.dp == 1 and args.dp_rows == 1:
+        return None
+    import torch
+
+    from raytracing_cuda_tpu_torch.parallel.frames import make_hybrid_mesh
+
+    try:
+        return make_hybrid_mesh(args.dp, args.dp_rows,
+                                torch.device(device).type)
+    except ValueError as e:
+        raise SystemExit(f"record --dp {args.dp} --dp-rows {args.dp_rows}: "
+                         f"{e}")
+
+
+def _record(args, eng, mesh=None) -> int:
     from raytracing_cuda_tpu_torch.utils import frameio
     from raytracing_cuda_tpu_torch.utils.images import box_downsample, to_host
 
@@ -193,15 +221,30 @@ def _record(args, eng) -> int:
             print(f"resume: {start} frames already in {out_dir}, state "
                   f"fast-forwarded", file=sys.stderr)
 
+    if mesh is None:
+        batch = RECORD_BATCH
+
+        def render(actions):
+            return eng.step_and_frame_batch(actions,
+                                            [RECORD_DT] * len(actions))
+    else:
+        # --dp: batches of dp * 4 frames, the size fixed once, then the
+        # rest frame by frame (the JAX CLI's sizing, __main__.py:221-247)
+        batch = min(args.dp * 4,
+                    (args.frames - start) // args.dp * args.dp)
+
+        def render(actions):
+            return eng.render_script_dp(actions, dt=RECORD_DT,
+                                        n_rows=args.dp_rows, mesh=mesh)
+
     def emit_all(write):
         i = start
-        while args.frames - i >= RECORD_BATCH:
-            imgs = to_host(eng.step_and_frame_batch(
-                [scripted_action(i + j) for j in range(RECORD_BATCH)],
-                [RECORD_DT] * RECORD_BATCH))
-            for j in range(RECORD_BATCH):
+        while batch and args.frames - i >= batch:
+            imgs = to_host(render([scripted_action(i + j)
+                                   for j in range(batch)]))
+            for j in range(batch):
                 write(box_downsample(imgs[j], args.ssaa), frame_path(i + j))
-            i += RECORD_BATCH
+            i += batch
         for i in range(i, args.frames):
             img = eng.step_and_frame(scripted_action(i), RECORD_DT)
             write(box_downsample(img, args.ssaa), frame_path(i))
@@ -250,6 +293,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(str(e))
     device = _device(args)
+    mesh = _record_mesh(args, device) if args.command == "record" else None
 
     from raytracing_cuda_tpu_torch.app.loop import Engine
 
@@ -265,7 +309,7 @@ def main(argv=None) -> int:
         print(f"wrote {out}")
         return 0
     if args.command == "record":
-        return _record(args, eng)
+        return _record(args, eng, mesh)
     print(eng.run(args.frames).as_dict())
     return 0
 

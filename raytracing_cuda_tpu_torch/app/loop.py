@@ -16,18 +16,27 @@ launch of each kernel (render/pipeline.py `batch_packs` /
 `frames_from_packs`); `run(batch=K)` and the CLI's `record` drive it.
 
 The device is always explicit: Engine(config, device="cuda") runs the CUDA
-kernels, device="cpu" their plain PyTorch versions.
+kernels, device="cpu" their plain PyTorch versions. Engine(...,
+sharded=True) renders every frame in row bands over all devices of that
+type, or over an explicit device list (parallel/mesh.py);
+`render_script_dp` renders a scripted animation with its frames, or frames
+and rows, spread over devices (parallel/frames.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
 from raytracing_cuda_tpu_torch.core.types import Camera
+from raytracing_cuda_tpu_torch.parallel import frames as pframes
+from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
+                                                     band_rows, devices,
+                                                     make_mesh, render_bands)
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
 from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
                                                        frames_from_packs,
@@ -46,9 +55,10 @@ from raytracing_cuda_tpu_torch.utils.timing import (FrameStats, FrameTimer,
 
 
 class Engine:
-    """Scene + static sky stack + frame state, rendering on one device."""
+    """Scene + static sky stack + frame state, rendering on one device or,
+    sharded, in row bands over several."""
 
-    def __init__(self, config: RenderConfig, device,
+    def __init__(self, config: RenderConfig, device, sharded=False,
                  share_assets_from: "Engine | None" = None):
         self.config = config
         self.device = torch.device(device)
@@ -56,6 +66,9 @@ class Engine:
             raise RuntimeError("Engine(device='cuda') but CUDA is unavailable")
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
+        self.device = as_device(self.device)
+        self.sharded = sharded
+        self.mesh = self._row_mesh(sharded)
         src = share_assets_from
         if src is not None:
             # the resize path (main.cpp:293-306): same scene, sky and state
@@ -76,6 +89,11 @@ class Engine:
             self.sky_pack = pack_sky_all(
                 torch.from_numpy(texels).to(self.device))
             self.state = self._initial_state()
+        # the static sky stack on each device that renders, copied to a
+        # device once, at its first use
+        self._sky_packs = dict(getattr(src, "_sky_packs", {}))
+        self._sky_packs[self.sky_pack.device] = self.sky_pack
+        self._sky_packs_for(self.mesh or [])
         self.tri_clusters = TRI_CLUSTERS.get(config.scene)
         self.sph_clusters = SPH_CLUSTERS.get(config.scene)
         self.tri_subs = TRI_SUBS.get(config.scene)
@@ -84,6 +102,38 @@ class Engine:
         # pinned host staging buffer whose copy-done event gates the next
         # host write
         self._bufs: dict = {}
+
+    def _row_mesh(self, sharded):
+        """The row mesh of sharded (True: all devices of the engine's type;
+        or a device list), or None when the frame is not split."""
+        if sharded is False or sharded is None:
+            return None
+        mesh = (make_mesh(device_type=self.device.type) if sharded is True
+                else as_mesh(sharded))
+        if mesh[0].type != self.device.type:
+            raise ValueError(f"a {self.device.type} engine cannot shard over "
+                             f"{mesh[0].type} devices")
+        interleave = self.config.shard_interleave
+        if len(mesh) == 1:
+            # one device: the single-device render, where striding does not
+            # exist (loop.py:88-98)
+            if interleave > 1:
+                warnings.warn(
+                    f"sharded over a single device: shard_interleave="
+                    f"{interleave} has no effect (rendering single-device)",
+                    stacklevel=3)
+            return None
+        band_rows(self.config.height, len(mesh), interleave)   # fail fast
+        return mesh
+
+    def _sky_packs_for(self, mesh) -> dict:
+        for d in dict.fromkeys(mesh):
+            if d.type != self.device.type:
+                raise ValueError(f"a {self.device.type} engine cannot render "
+                                 f"on {d}")
+            if d not in self._sky_packs:
+                self._sky_packs[d] = self.sky_pack.to(d)
+        return self._sky_packs
 
     def _initial_state(self) -> sim.FrameState:
         c = self.config
@@ -126,7 +176,8 @@ class Engine:
         """An Engine at another framebuffer size sharing this one's scene,
         sky stack and state (the reference's reshape, main.cpp:293-306)."""
         cfg = dataclasses.replace(self.config, width=width, height=height)
-        return Engine(cfg, self.device, share_assets_from=self)
+        return Engine(cfg, self.device, sharded=self.sharded,
+                      share_assets_from=self)
 
     # --- rendering ---
 
@@ -160,10 +211,22 @@ class Engine:
             copied.record()
         return dev_buf[:n].view(coefs.shape), dev_buf[n:].view(params.shape)
 
+    def _bands(self, coefs, params, n_tri: int, n_sph: int, states):
+        """K frames in row bands over the engine's mesh → (K, H, W, 3)
+        uint8 on the engine device."""
+        c = self.config
+        return render_bands(coefs, params, n_tri, n_sph, states,
+                            self._sky_packs, self.sky_h, self.sky_w,
+                            mesh=self.mesh, height=c.height, width=c.width,
+                            interleave=c.shard_interleave).to(self.device)
+
     def frame(self) -> torch.Tensor:
         """Render the current state → (H, W, 3) uint8 on the engine device."""
         c = self.config
         coef, params, n_tri, n_sph = self._packs()
+        if self.mesh is not None:
+            return self._bands(coef[None], params[None], n_tri, n_sph,
+                               [self.state])[0]
         coef_d, params_d = self._upload(coef[None], params[None])
         base = _base(coef_d[0], params_d[0], n_tri, n_sph, self.sky_pack,
                      self.sky_h, self.sky_w, self.state, c.height, c.width)
@@ -188,12 +251,56 @@ class Engine:
             self.scene, self.state, pack_actions(actions, dts), c.height,
             c.width, c.aspect, self.tri_clusters, self.sph_clusters,
             self.tri_subs)
-        coefs_d, params_d = self._upload(coefs, params)
-        imgs = frames_from_packs(coefs_d, params_d, n_tri, n_sph,
-                                 self.sky_pack, self.sky_h, self.sky_w,
-                                 states, c.height, c.width)
+        if self.mesh is not None:
+            imgs = self._bands(coefs, params, n_tri, n_sph, states)
+        else:
+            coefs_d, params_d = self._upload(coefs, params)
+            imgs = frames_from_packs(coefs_d, params_d, n_tri, n_sph,
+                                     self.sky_pack, self.sky_h, self.sky_w,
+                                     states, c.height, c.width)
         self.state = states[-1]
         return imgs
+
+    def render_script_dp(self, action_vecs, n_devices: int | None = None,
+                         dt: float = 1 / 60, n_rows: int = 1, mesh=None):
+        """Offline frame-parallel batch → (K, H, W, 3) uint8 on the engine
+        device, equal to K step_and_frame calls; advances the state past
+        all K frames (loop.py:317-373).
+
+        The K frames spread over n_devices devices of the engine's type
+        (all of them by default), K divisible by their count. n_rows > 1
+        selects the (frames, rows) hybrid: n_devices frame groups (by
+        default as many as fit) of n_rows row-sharded devices each, with
+        the config's shard_interleave. mesh overrides the devices: a list
+        (frame DP) or a list of n_frames lists of devices (hybrid). dt
+        applies to a list of Actions; packed (K, 16) vectors carry their
+        own dt."""
+        if self.mesh is not None:
+            raise ValueError("frame DP and row sharding are alternative "
+                             "layouts; build the Engine with sharded=False "
+                             "(n_rows>1 composes them on a 2-D mesh)")
+        if isinstance(action_vecs, (list, tuple)):
+            action_vecs = pack_actions(action_vecs, [dt] * len(action_vecs))
+        c = self.config
+        if mesh is None:
+            kind = self.device.type
+            if n_devices is None:
+                n_devices = max(len(devices(None, kind, "frame DP"))
+                                // n_rows, 1)
+            mesh = pframes.make_hybrid_mesh(n_devices, n_rows, kind)
+        # a flat list is frame DP: one device per frame group
+        mesh = [as_mesh(g if isinstance(g, (list, tuple)) else [g])
+                for g in mesh]
+        imgs, self.state = pframes.render_script_hybrid(
+            self.scene, self.state,
+            self._sky_packs_for([d for g in mesh for d in g]), self.sky_h,
+            self.sky_w, action_vecs, mesh=mesh, height=c.height,
+            width=c.width, aspect=c.aspect,
+            # one device per group: striding does not exist (as _row_mesh)
+            interleave=c.shard_interleave if len(mesh[0]) > 1 else 1,
+            tri_clusters=self.tri_clusters, sph_clusters=self.sph_clusters,
+            t_subs=self.tri_subs)
+        return imgs.to(self.device)
 
     def frame_np(self) -> np.ndarray:
         return self.frame().cpu().numpy()

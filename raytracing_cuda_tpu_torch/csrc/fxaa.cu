@@ -7,9 +7,10 @@
 // of the uint8 (H, W, 3) frame straight from global memory (neighbouring
 // threads share taps through L1) and writes its uint8 pixel.
 //
-// Bound: memory. Per pixel it reads 3 bytes (9 taps, mostly cache hits)
-// and writes 3, with ~60 flops; at 1280x720 that is ~5.5 MB of DRAM
-// traffic, a few microseconds at HBM rates, so launch latency dominates.
+// Bound: neither, by far. Per pixel it reads 3 bytes (9 taps, mostly cache
+// hits) and writes 3, with ~140 float operations: at 1280x720, 5.5 MB of
+// DRAM traffic (1.65 us at 3.35 TB/s) and ~0.13 GFLOP (~1.9 us at
+// 67 TFLOP/s), so launch latency and the 3-byte pixel loads dominate.
 //
 // Semantics are the reference's antialiasing kernel (kernel.cu:262-403)
 // as the JAX package states them: luminance min(255, rgb.w)/255 (rounded as
@@ -23,8 +24,18 @@
 // Frames: blockIdx.z is the frame of a (K, H, W, 3) batch, the counterpart
 // of the JAX package's lax.map of the Pallas kernel over frames
 // (render/pipeline.py:273-275); each frame is filtered on its own.
+//
+// Bands: a row-sharded frame (parallel/mesh.py) filters each h-row band
+// with one halo row above and below, the neighbouring bands' quantized
+// rows. The kernel takes a pointer to band row 0 and the per-frame input
+// stride, so one body serves both forms; a pixel is interior by its global
+// row row0 + y in a frame of total_h rows, as the TPU kernel judges it
+// (params row0/total_h, fxaa.py:218-224). Halo contents at the frame's top
+// and bottom are never read. A whole frame is the band h = total_h,
+// row0 = 0 with no halo: no copy is added to the main path's launch.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -37,23 +48,26 @@ constexpr int BLOCK_Y = 8;
 // by f32(1/255). See render/fxaa.py `luminance` for why not a true divide.
 __device__ __forceinline__ float lum(const uint8_t* __restrict__ img, int W,
                                      int y, int x) {
-    const uint8_t* p = img + ((size_t)y * W + x) * 3;
+    const uint8_t* p = img + ((ptrdiff_t)y * W + x) * 3;   // y may be -1
     const float r = p[0], g = p[1], b = p[2];
     const float s = fmaf(b, 0.0721750f, fmaf(r, 0.2126729f, g * 0.7151522f));
     return fminf(255.0f, s) * (1.0f / 255.0f);
 }
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-fxaa_kernel(const uint8_t* __restrict__ frames_in,
-            uint8_t* __restrict__ frames_out, int H, int W) {
+fxaa_kernel(const uint8_t* __restrict__ bands_in, size_t in_stride,
+            uint8_t* __restrict__ frames_out, int h, int W, int row0,
+            int total_h) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const size_t frame = (size_t)blockIdx.z * H * W * 3;
-    const uint8_t* __restrict__ in = frames_in + frame;
-    uint8_t* __restrict__ out = frames_out + frame;
+    if (x >= W || y >= h) return;
+    // `in` is band row 0 of this frame; an interior pixel reads rows y - 1
+    // and y + 1, which lie in the halo rows at the band's edges
+    const uint8_t* __restrict__ in = bands_in + (size_t)blockIdx.z * in_stride;
+    uint8_t* __restrict__ out = frames_out + (size_t)blockIdx.z * h * W * 3;
     const size_t o = ((size_t)y * W + x) * 3;
-    bool use_aa = x > 0 && y > 0 && x < W - 1 && y < H - 1;
+    const int gy = row0 + y;                 // the pixel's row in its frame
+    bool use_aa = x > 0 && gy > 0 && x < W - 1 && gy < total_h - 1;
 
     int nb_y = y, nb_x = x;
     float blend = 0.0f;
@@ -89,11 +103,12 @@ fxaa_kernel(const uint8_t* __restrict__ frames_in,
             nb_x = fabsf(le - lm) >= fabsf(lw - lm) ? x + 1 : x - 1;
         }
     }
-    const size_t nb = ((size_t)nb_y * W + nb_x) * 3;
+    const ptrdiff_t nb = ((ptrdiff_t)nb_y * W + nb_x) * 3;
     for (int c = 0; c < 3; ++c) {
         const float cm = in[o + c];
         if (use_aa) {
-            const float v = (float)in[nb + c] * blend + cm * (1.0f - blend);
+            const float v = (float)in[nb + c] * blend
+                            + cm * (1.0f - blend);
             out[o + c] = (uint8_t)fminf(fmaxf(v, 0.0f), 255.0f);
         } else {
             out[o + c] = in[o + c];
@@ -103,15 +118,21 @@ fxaa_kernel(const uint8_t* __restrict__ frames_in,
 
 }  // namespace
 
-// in, out: K x H x W x 3 uint8
-extern "C" int rt_fxaa(const uint8_t* in, uint8_t* out, int K, int H, int W,
-                       void* stream) {
-    if (K < 1 || K > 65535 || H < 1 || W < 1)
+// bands_in: K frames' band row 0, frame k at bands_in + k * in_stride bytes;
+// band rows -1 and h (the halo rows) are read only for interior pixels.
+// out: K x h x W x 3 uint8. A whole frame is h = total_h, row0 = 0,
+// in_stride = h * W * 3: its border rows pass through and no halo is read.
+extern "C" int rt_fxaa(const uint8_t* bands_in, size_t in_stride,
+                       uint8_t* out, int K, int h, int W, int row0,
+                       int total_h, void* stream) {
+    if (K < 1 || K > 65535 || h < 1 || W < 1 || row0 < 0
+        || row0 + h > total_h)
         return (int)cudaErrorInvalidValue;
     const dim3 block(BLOCK_X, BLOCK_Y);
-    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y,
+    const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (h + BLOCK_Y - 1) / BLOCK_Y,
                     K);
-    fxaa_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, out, H, W);
+    fxaa_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        bands_in, in_stride, out, h, W, row0, total_h);
     return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,107 @@
+"""Frame-parallel offline rendering over a list of devices (port of
+raytracing_cuda_tpu/parallel/frames.py).
+
+Row bands (parallel/mesh.py) cut the latency of one frame; a scripted
+animation rendered offline (record) wants throughput, and its frames are
+independent once their states are known. The host state machine steps
+through all K states in order, then device d renders its contiguous block
+of K / n frames with one launch of each kernel, so frame k equals the
+k-th Engine.step_and_frame from the same state. The hybrid composes this
+with row bands: n_frames groups of n_rows devices, each group rendering
+its block of frames in bands (parallel/mesh.py render_bands); frame DP is
+the hybrid with one device per group.
+
+A mesh is a list of torch.devices (a hybrid mesh a list of such lists);
+devices may repeat, as in parallel/mesh.py. The result is gathered on the
+first device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracing_cuda_tpu_torch.core.types import Scene
+from raytracing_cuda_tpu_torch.parallel.mesh import (as_mesh, band_rows,
+                                                     devices, render_bands)
+from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
+                                                       pack_actions)
+from raytracing_cuda_tpu_torch.sim.state import FrameState
+
+
+def make_frames_mesh(n_devices: int | None = None,
+                     device_type: str = "cuda") -> list:
+    """Frame mesh over the first n_devices devices of a type. Fails fast
+    where fewer exist: the CLI sizes its batches by the requested count
+    (frames.py:46-60)."""
+    return devices(n_devices, device_type, "frame DP")
+
+
+def make_hybrid_mesh(n_frames: int, n_rows: int,
+                     device_type: str = "cuda") -> list:
+    """(frames, rows) mesh: n_frames groups of n_rows devices each, the
+    rows of a group on neighbouring devices (frames.py:131-149)."""
+    if n_frames < 1 or n_rows < 1:
+        raise ValueError(f"hybrid mesh axes must be >= 1, got "
+                         f"{n_frames}x{n_rows}")
+    devs = devices(n_frames * n_rows, device_type,
+                   f"hybrid mesh {n_frames}x{n_rows}")
+    return [devs[g * n_rows:(g + 1) * n_rows] for g in range(n_frames)]
+
+
+def _blocks(K: int, n: int, axis: str) -> int:
+    if K % n:
+        raise ValueError(f"{K} frames not divisible over the {n}-device "
+                         f"{axis}; render the remainder with single-frame "
+                         f"steps")
+    return K // n
+
+
+def render_script_dp(scene: Scene, state: FrameState, sky_packs: dict,
+                     sky_h: int, sky_w: int, action_vecs, *, mesh,
+                     height: int, width: int, aspect: float | None = None,
+                     tri_clusters=None, sph_clusters=None, t_subs=None):
+    """K frames of packed (K, 16) actions with the frames sharded over
+    mesh → (imgs (K, H, W, 3) uint8 on mesh[0], last_state): the hybrid
+    with one device per frame group.
+
+    K must divide over the mesh. sky_packs maps each device of mesh to its
+    copy of the static sky stack (parallel.mesh.replicate)."""
+    return render_script_hybrid(
+        scene, state, sky_packs, sky_h, sky_w, action_vecs,
+        mesh=[[d] for d in as_mesh(mesh)], height=height, width=width,
+        aspect=aspect, tri_clusters=tri_clusters, sph_clusters=sph_clusters,
+        t_subs=t_subs)
+
+
+def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
+                         sky_h: int, sky_w: int, action_vecs, *, mesh,
+                         height: int, width: int,
+                         aspect: float | None = None, interleave: int = 1,
+                         tri_clusters=None, sph_clusters=None, t_subs=None):
+    """K frames over a (frames, rows) mesh → (imgs (K, H, W, 3) uint8 on
+    the first device, last_state): group g renders its block of K / n_frames
+    frames in row bands over its n_rows devices (frames.py:152-256), each
+    kernel launched once per band for the block.
+
+    K must divide over the groups and height over n_rows * interleave.
+    sky_packs maps each device of mesh to its copy of the static sky
+    stack."""
+    mesh = [as_mesh(group) for group in mesh]
+    if not mesh or len({len(group) for group in mesh}) > 1:
+        raise ValueError("a hybrid mesh is a non-empty list of equally long "
+                         "device lists")
+    vecs = pack_actions(action_vecs, None)
+    per = _blocks(len(vecs), len(mesh), "frame axis")
+    band_rows(height, len(mesh[0]), interleave)
+    coefs, params, nt, ns, states = batch_packs(
+        scene, state, vecs, height, width, aspect, tri_clusters,
+        sph_clusters, t_subs)
+    first = mesh[0][0]
+    blocks = []
+    for g, group in enumerate(mesh):
+        s = slice(g * per, (g + 1) * per)
+        blocks.append(render_bands(
+            coefs[s], params[s], nt, ns, states[s], sky_packs, sky_h, sky_w,
+            mesh=group, height=height, width=width,
+            interleave=interleave).to(first, non_blocking=True))
+    return torch.cat(blocks), states[-1]

@@ -1,0 +1,176 @@
+"""Row-band sharding of a frame over a list of devices (port of
+raytracing_cuda_tpu/parallel/mesh.py).
+
+The JAX package shards the framebuffer by row bands over a
+jax.sharding.Mesh with shard_map: every device raytraces its band with the
+band's global row offset in the megakernel's params, and the FXAA stencil
+reads one halo row from each neighbouring band through lax.ppermute. Here a
+mesh is a list of torch.devices, one entry per band slot, run from one
+process. A device may repeat: ["cpu"] * n stands in for the JAX tests'
+virtual CPU devices, ["cuda:0"] * n runs n bands one after another on one
+card.
+
+The host derives and packs the frame once. Global chunk c of the frame's
+rows runs on its device: kernel A at row offset c * rows, then the flat
+pair sky lookup and quantize. The last row of chunk c - 1 and the first row
+of chunk c + 1 then move to chunk c's device (zeros at the frame's top and
+bottom, which pass through FXAA), and kernel B's band form filters the
+chunk, judging borders by global row. Every pixel equals the single-device
+frame bit for bit, the JAX package's contract (mesh.py:192-194).
+
+The JAX package's grouped sky resolve, and with it the band alignment rule
+of `_resolve_grouped`, is left behind: the port's sky lookup is per pixel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracing_cuda_tpu_torch.core.types import Scene
+from raytracing_cuda_tpu_torch.render.fxaa import fxaa_batch, fxaa_ext
+from raytracing_cuda_tpu_torch.render.pipeline import (bases_from_packs,
+                                                       host_packs)
+from raytracing_cuda_tpu_torch.sim.state import FrameState
+
+
+def as_device(d) -> torch.device:
+    """d as a torch.device; a CUDA device names its card (the current one
+    where d names none), so devices compare equal to tensors' devices."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def as_mesh(devices) -> list:
+    """A list of devices (names or torch.devices) → torch.devices, each CUDA
+    device with its index; all of one type."""
+    mesh = [as_device(d) for d in devices]
+    if not mesh:
+        raise ValueError("a mesh needs at least one device")
+    if len({d.type for d in mesh}) > 1:
+        raise ValueError(f"a mesh holds devices of one type, got {mesh}")
+    return mesh
+
+
+def devices(n: int | None, device_type: str, what: str) -> list:
+    """n devices of a type for `what`: the first n distinct CUDA cards (all
+    of them when n is None), failing fast where fewer exist; on the CPU n
+    entries of the one CPU device (one when n is None)."""
+    if device_type == "cpu":
+        n = 1 if n is None else n
+        have = n
+    elif device_type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = have if n is None else n
+    else:
+        raise ValueError(f"no mesh of {device_type!r} devices")
+    if n < 1:
+        raise ValueError(f"{what} needs at least one device, got {n}")
+    if have < n:
+        raise ValueError(f"{what} over {n} {device_type} devices requested "
+                         f"but only {have} available")
+    if device_type == "cpu":
+        return [torch.device("cpu")] * n
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(n_devices: int | None = None,
+              device_type: str = "cuda") -> list:
+    """Row mesh over the first n_devices devices of a type (devices())."""
+    return devices(n_devices, device_type, "row sharding")
+
+
+def replicate(t: torch.Tensor, mesh) -> dict:
+    """One copy of t on each distinct device of mesh (t itself where it
+    already lies) → {device: tensor}."""
+    return {d: t if t.device == d else t.to(d)
+            for d in dict.fromkeys(as_mesh(mesh))}
+
+
+def band_rows(height: int, n: int, interleave: int) -> int:
+    """Rows per chunk when n devices take `interleave` chunks each."""
+    if interleave < 1:
+        raise ValueError(f"interleave must be >= 1, got {interleave}")
+    if height % (n * interleave):
+        raise ValueError(f"height {height} not divisible by mesh size {n} "
+                         f"x interleave {interleave}")
+    return height // (n * interleave)
+
+
+def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
+                 sky_packs: dict, sky_h: int, sky_w: int, *, mesh,
+                 height: int, width: int, interleave: int = 1,
+                 aa=None) -> torch.Tensor:
+    """K frames rendered in row bands over mesh → (K, height, width, 3)
+    uint8 on mesh[0], rows in frame order.
+
+    coefs (K, n, C) and params (K, P) are the frames' packs (batch_packs);
+    sky_packs maps every device of mesh to its copy of the static sky
+    stack; aa[k] (default: state k's toggle) says whether frame k is
+    filtered. Chunk c runs on mesh[c % n], so device d renders chunks
+    d, d + n, … (`interleave` of them; contiguous bands at 1). The body of
+    band_shard_fn (mesh.py:68-161), with the K frames of a frame group in
+    each launch as render_script_hybrid maps it over local frames.
+    """
+    mesh = as_mesh(mesh)
+    n = len(mesh)
+    sub = band_rows(height, n, interleave)
+    chunks = n * interleave
+    aa = [bool(st.aa) for st in states] if aa is None else list(aa)
+    packs = {d: (coefs.to(d), params.to(d)) for d in dict.fromkeys(mesh)}
+
+    # every chunk's quantized rows on its device
+    bases = []
+    for c in range(chunks):
+        dev = mesh[c % n]
+        bases.append(bases_from_packs(
+            *packs[dev], n_tri_rows, n_sph_rows, sky_packs[dev], sky_h,
+            sky_w, states, sub, width, row0=c * sub, total_h=height))
+    if not any(aa):
+        return torch.cat([b.to(mesh[0]) for b in bases], dim=1)
+
+    # halo exchange by global chunk index, then FXAA on each chunk (a whole
+    # frame, with no halo rows, where there is one chunk); a frame whose
+    # toggle is off keeps its base rows (mesh.py:155-159)
+    outs = []
+    for c, base in enumerate(bases):
+        dev = base.device
+        if chunks == 1:
+            out = fxaa_batch(base)
+        else:
+            zero = torch.zeros_like(base[:, :1])
+            top = (bases[c - 1][:, -1:].to(dev, non_blocking=True) if c > 0
+                   else zero)
+            bot = (bases[c + 1][:, :1].to(dev, non_blocking=True)
+                   if c < chunks - 1 else zero)
+            out = fxaa_ext(torch.cat([top, base, bot], dim=1), c * sub,
+                           height)
+        for k, on in enumerate(aa):
+            if not on:
+                out[k] = base[k]
+        outs.append(out.to(mesh[0], non_blocking=True))
+    return torch.cat(outs, dim=1)
+
+
+def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
+                         sky_h: int, sky_w: int, *, mesh, height: int,
+                         width: int, aspect: float | None = None,
+                         fxaa_static: bool | None = None, interleave: int = 1,
+                         tri_clusters=None, sph_clusters=None,
+                         t_subs=None) -> torch.Tensor:
+    """Row-sharded render of one frame → (height, width, 3) uint8 on
+    mesh[0], equal bit for bit to render_frame_static_sky.
+
+    sky_packs maps each device of mesh to its copy of the static (4, H*W)
+    sky stack (replicate). fxaa_static overrides the state's FXAA toggle.
+    interleave = k > 1 gives each device k strided chunks instead of one
+    contiguous band (mesh.py:200-209)."""
+    mesh = as_mesh(mesh)
+    band_rows(height, len(mesh), interleave)
+    coef, params, nt, ns = host_packs(scene, state, height, width, aspect,
+                                      tri_clusters, sph_clusters, t_subs)
+    aa = bool(state.aa) if fxaa_static is None else bool(fxaa_static)
+    return render_bands(coef[None], params[None], nt, ns, [state], sky_packs,
+                        sky_h, sky_w, mesh=mesh, height=height, width=width,
+                        interleave=interleave, aa=[aa])[0]

@@ -33,6 +33,12 @@ f32 = torch.float32
 
 MAX_DEPTH = 4        # kernel.cu:11
 BIG = 1e30           # finite stand-in for +inf
+# what raytrace_planes_torch(work=...) counts: rays cast (summed over
+# levels) and their tests of triangle and sphere rows; hits shaded; shadow
+# rays cast and occluded, and the unoccluded ones' tests of triangle and
+# blocking sphere rows
+WORK_KEYS = ("rays", "tri_tests", "sph_tests", "shaded", "shadow",
+             "occluded", "shadow_tri_tests", "shadow_sph_tests")
 
 # --- coefficient-table channel map (pallas_rt.py:61-83) ---
 C_COL = 0            # 0-2   color rgb
@@ -251,6 +257,26 @@ def cluster_bounds(scene: Scene, tri_clusters=None, sph_clusters=None,
     return torch.stack(out)
 
 
+def cull_groups(n_triangles: int, n_spheres: int, tri_clusters=None,
+                sph_clusters=None, t_subs=None) -> tuple:
+    """The coefficient-table rows under each cull bound, in the order of
+    the bounds in the params vector (cluster_bounds): ((first row, row
+    count), ...), the triangle sub-bounds first, then the sphere
+    clusters."""
+    pads = tri_cluster_pads(n_triangles, tri_clusters)
+    counts = tri_clusters or (n_triangles,)
+    subs = t_subs or (1,) * len(pads)
+    groups, row = [], 1
+    for cnt, pad, m in zip(counts, pads, subs):
+        groups += [(row + u * (cnt // m), cnt // m) for u in range(m)]
+        row += pad
+    s_counts, s_pads, _ = sph_cluster_norm(n_spheres, sph_clusters)
+    for cnt, pad in zip(s_counts, s_pads):
+        groups.append((row, cnt))
+        row += pad
+    return tuple(groups)
+
+
 def pack_params(cam_rays: CameraRays, lights: Lights, ambient, sea_y,
                 row0=0):
     """The (N_PARAMS,) float32 params vector (cluster slots left zero)."""
@@ -346,8 +372,69 @@ def _occluded(Ct, Cs, blocks, ox, oy, oz, dx, dy, dz, sdist, sea_y):
     return occ
 
 
-def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl):
-    """Trace primary rays (dx, dy, dz) of one pixel chunk into out[:, sl]."""
+def reach(bounds, ox, oy, oz, dx, dy, dz, t_hi):
+    """(n, G) bool: whether each of n rays (unit directions) can meet each
+    of G bounding spheres (cx, cy, cz, r) before distance t_hi: its origin
+    lies inside, or the sphere lies ahead within r of the ray and no
+    farther than t_hi. The TPU kernel's sound cluster cull
+    (pallas_rt.py:476-516) for a box of one ray."""
+    col = lambda v: v[:, None]
+    lx, ly, lz = (bounds[None, :, k] - col(o)
+                  for k, o in enumerate((ox, oy, oz)))
+    ll = lx * lx + ly * ly + lz * lz
+    tca = lx * col(dx) + ly * col(dy) + lz * col(dz)
+    r = bounds[None, :, 3]
+    r2 = r * r
+    return (ll <= r2) | ((tca > 0) & (ll - tca * tca <= r2)
+                         & (tca - r <= col(t_hi)))
+
+
+class _Work:
+    """Counts what a chunk's rays need into a WORK_KEYS dict: a ray tests
+    only the rows under the cull bounds (cull_groups) it can reach (reach),
+    up to the sea plane's hit for a cast ray, up to the light for a shadow
+    ray. The bound tests themselves are not counted: a tile of rays can
+    share them, as the TPU kernel's do."""
+
+    def __init__(self, counts, coef, P, n_tri, groups):
+        self.counts = counts
+        real = coef[:, C_GIDX] < 1e9
+        blocks = real & (coef[:, C_BLOCKS] > 0)
+        self.bounds = P[P_CLUSTERS:P_CLUSTERS + 4 * len(groups)].reshape(-1, 4)
+        is_tri = torch.tensor([f < 1 + n_tri for f, _ in groups],
+                              device=coef.device)
+        rows = torch.stack([real[f:f + c].sum() for f, c in groups])
+        block_rows = torch.stack([blocks[f:f + c].sum() for f, c in groups])
+        self.tri_rows = torch.where(is_tri, rows, 0)
+        self.sph_rows = torch.where(is_tri, 0, rows)
+        self.sph_block_rows = torch.where(is_tri, 0, block_rows)
+
+    def add(self, key, n):
+        self.counts[key] += int(n)
+
+    def cast(self, o, d, t_plane):
+        r = reach(self.bounds, *o, *d, t_plane).long()
+        self.add("rays", o[0].numel())
+        self.add("tri_tests", (r * self.tri_rows).sum())
+        self.add("sph_tests", (r * self.sph_rows).sum())
+
+    def shadow(self, o, d, dist, occ):
+        self.add("shadow", occ.numel())
+        self.add("occluded", occ.sum())
+        clear = ~occ
+        o, d = [v[clear] for v in o], [v[clear] for v in d]
+        r = reach(self.bounds, *o, *d, dist[clear]).long()
+        self.add("shadow_tri_tests", (r * self.tri_rows).sum())
+        self.add("shadow_sph_tests", (r * self.sph_block_rows).sum())
+
+
+def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
+                 cull=None):
+    """Trace primary rays (dx, dy, dz) of one pixel chunk into out[:, sl].
+    work, where given, counts what the chunk's rays needed under the cull
+    groups `cull` (_Work)."""
+    if work is not None:
+        work = _Work(work, coef, P, n_tri, cull)
     n = dx.shape[0]
     dev = dx.device
     Ct = coef[1:1 + n_tri]
@@ -378,7 +465,10 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl):
         mz = lox * ldy - loy * ldx
 
         # nearest hit: lexicographic (t, gidx) minimum over plane + rows
-        cands = [col(_plane_t(loy, ldy, sea_y))]
+        t_plane = _plane_t(loy, ldy, sea_y)
+        if work is not None:
+            work.cast((lox, loy, loz), (ldx, ldy, ldz), t_plane)
+        cands = [col(t_plane)]
         if n_tri:
             cands.append(_tri_t(Ct, *map(col, (lox, loy, loz, ldx, ldy, ldz,
                                                mx, my, mz))))
@@ -417,6 +507,8 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl):
 
         sh = (~em).nonzero().squeeze(1)
         live = live[sh]
+        if work is not None:
+            work.add("shaded", sh.numel())
         (ox_, oy_, oz_, dx_, dy_, dz_, thr_, hx, hy, hz, nx, ny, nz, colr,
          colg, colb, shine, spec_e, kr) = (
             v[sh] for v in (lox, loy, loz, ldx, ldy, ldz, lthr, hx, hy, hz,
@@ -435,12 +527,14 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl):
             need = (angle > 0).nonzero().squeeze(1)
             if need.numel():
                 q = lambda v: v[need]
-                occ = _occluded(Ct, Cs, blocks,
-                                q(hx) + q(sdx) * 0.001, q(hy) + q(sdy) * 0.001,
-                                q(hz) + q(sdz) * 0.001, q(sdx), q(sdy), q(sdz),
-                                q(sdist), sea_y)
+                so = (q(hx) + q(sdx) * 0.001, q(hy) + q(sdy) * 0.001,
+                      q(hz) + q(sdz) * 0.001)
+                sd = (q(sdx), q(sdy), q(sdz))
+                occ = _occluded(Ct, Cs, blocks, *so, *sd, q(sdist), sea_y)
                 angle = angle.index_put((need[occ],),
                                         torch.zeros((), dtype=f32, device=dev))
+                if work is not None:
+                    work.shadow(so, sd, q(sdist), occ)
             aint = angle * P[P_LINT + li]
             phr = phr + colr * P[cb] * aint
             phg = phg + colg * P[cb + 1] * aint
@@ -499,29 +593,38 @@ def primary_rays(params, H: int, W: int, row0: int = 0, total_h=None):
 
 def raytrace_planes_torch(coef, params, H: int, W: int, n_tri_rows: int,
                           n_sph_rows: int, row0: int = 0, total_h=None,
-                          chunk: int = 65536):
+                          chunk: int = 65536, work: dict | None = None,
+                          cull=None):
     """Plain PyTorch megakernel: 7 (H, W) float32 planes, chunked over pixels.
 
     The same math as csrc/raytrace.cu (and the TPU kernel minus its output-
     identical culls): per chunk of pixels, up to MAX_DEPTH + 1 levels over
     the plane and all rows, with the rays still alive compacted each level.
+    A `work` dict (WORK_KEYS, each starting at 0) counts what this input
+    needs: rays cast (summed over levels), non-emissive hits shaded, shadow
+    rays cast and occluded, and the row tests of the cast and unoccluded
+    shadow rays, each ray counting only the rows under the cull bounds it
+    can reach; it needs `cull`, the cull_groups of the packed scene.
     """
+    if work is not None and not cull:
+        raise ValueError("counting work needs the scene's cull groups")
     dx, dy, dz = primary_rays(params, H, W, row0, total_h)
     out = torch.empty((7, H * W), dtype=f32, device=coef.device)
     for s in range(0, H * W, chunk):
         sl = slice(s, min(s + chunk, H * W))
         _trace_chunk(coef, params, n_tri_rows, n_sph_rows, dx[sl].clone(),
-                     dy[sl].clone(), dz[sl].clone(), out, sl)
+                     dy[sl].clone(), dz[sl].clone(), out, sl, work, cull)
     return tuple(out.reshape(7, H, W))
 
 
 def raytrace_planes_batch_torch(coefs, params, H: int, W: int,
                                 n_tri_rows: int, n_sph_rows: int,
-                                row0: int = 0, total_h=None):
+                                row0: int = 0, total_h=None,
+                                work: dict | None = None, cull=None):
     """Plain K-frame megakernel: 7 (K, H, W) float32 planes, one
     raytrace_planes_torch call per frame."""
     per_frame = [raytrace_planes_torch(c, p, H, W, n_tri_rows, n_sph_rows,
-                                       row0, total_h)
+                                       row0, total_h, work=work, cull=cull)
                  for c, p in zip(coefs, params)]
     return tuple(torch.stack(planes) for planes in zip(*per_frame))
 
@@ -554,11 +657,12 @@ def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h):
                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((7, K, H, W), dtype=f32, device=coefs.device)
-    stream = torch.cuda.current_stream(coefs.device).cuda_stream
-    err = fn(coefs.data_ptr(), coefs.shape[1], n_rows, 1 + n_tri_rows, n_rows,
-             params.data_ptr(), out.data_ptr(), K, H, W, row0,
-             float(np.float32(1.0 / (W - 1))),
-             float(np.float32(1.0 / (total_h - 1))), stream)
+    with torch.cuda.device(coefs.device):
+        stream = torch.cuda.current_stream(coefs.device).cuda_stream
+        err = fn(coefs.data_ptr(), coefs.shape[1], n_rows, 1 + n_tri_rows,
+                 n_rows, params.data_ptr(), out.data_ptr(), K, H, W, row0,
+                 float(np.float32(1.0 / (W - 1))),
+                 float(np.float32(1.0 / (total_h - 1))), stream)
     _build.check(lib, err, "raytrace kernel launch")
     return out
 

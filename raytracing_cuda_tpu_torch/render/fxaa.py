@@ -5,11 +5,13 @@ uint8 frame: Rec.709 luminance, a contrast skip, a 12-tap blend factor
 through smoothstep, and a horizontal/vertical pick of the ±1 neighbour;
 image-border pixels pass through.
 
-`fxaa` (one frame) and `fxaa_batch` (K frames in one launch) dispatch on the
-device of their input: a CPU tensor runs the plain PyTorch version
-(`fxaa_torch`, the JAX package's XLA stencil, `fxaa` / `fxaa_ext` at
-row0 = 0), a CUDA tensor launches csrc/fxaa.cu (replaces the Pallas kernel
-launched at fxaa.py:265) or raises.
+`fxaa` (one frame), `fxaa_batch` (K frames in one launch) and `fxaa_ext` (a
+row band with one halo row above and below, as row-sharded frames run it)
+dispatch on the device of their input: a CPU tensor runs the plain PyTorch
+version (`fxaa_ext_torch`, the JAX package's XLA stencil `fxaa_ext`, and
+`fxaa_torch`, the same on the edge-padded frame), a CUDA tensor launches
+csrc/fxaa.cu (replaces the Pallas kernel launched at fxaa.py:265) or
+raises.
 """
 
 from __future__ import annotations
@@ -54,15 +56,24 @@ def luminance(img_f32: torch.Tensor) -> torch.Tensor:
     return torch.clamp(lum, max=255.0) * _INV_255
 
 
-def fxaa_torch(image: torch.Tensor) -> torch.Tensor:
-    """Plain FXAA on a (H, W, 3) uint8 frame → (H, W, 3) uint8."""
-    h, w = image.shape[0], image.shape[1]
-    img = image.to(f32)
-    # edge-pad by one pixel on each side (only border pixels, which pass
+def fxaa_ext_torch(image_ext: torch.Tensor, row0: int,
+                   total_height: int) -> torch.Tensor:
+    """Plain FXAA over a vertically extended band (the JAX package's
+    fxaa_ext, fxaa.py:45-111): (h + 2, W, 3) uint8, the band with one halo
+    row above and one below → the filtered band, (h, W, 3) uint8. A
+    (K, h + 2, W, 3) stack filters each frame's band. row0 and total_height
+    place the band in its frame: a pixel is interior by its global row
+    row0 + y, so the halo rows at the frame's top and bottom are never
+    read."""
+    if image_ext.ndim == 4:
+        return torch.stack([fxaa_ext_torch(e, row0, total_height)
+                            for e in image_ext])
+    h, w = image_ext.shape[0] - 2, image_ext.shape[1]
+    dev = image_ext.device
+    # edge-pad by one column on each side (only border pixels, which pass
     # through, ever read the padding)
-    ys = torch.clamp(torch.arange(-1, h + 1, device=image.device), 0, h - 1)
-    xs = torch.clamp(torch.arange(-1, w + 1, device=image.device), 0, w - 1)
-    ip = img[ys][:, xs]                              # (h+2, w+2, 3)
+    xs = torch.clamp(torch.arange(-1, w + 1, device=dev), 0, w - 1)
+    ip = image_ext.to(f32)[:, xs]                    # (h+2, w+2, 3)
     lp = luminance(ip)
 
     def tap(a, dy, dx):
@@ -98,12 +109,21 @@ def fxaa_torch(image: torch.Tensor) -> torch.Tensor:
         torch.where(pick_e, tap(ip, 1, 2), tap(ip, 1, 0)))
 
     b = blend[..., None]
-    out = torch.clamp(neighbor * b + img * (1.0 - b), 0.0, 255.0).to(torch.uint8)
+    out = torch.clamp(neighbor * b + tap(ip, 1, 1) * (1.0 - b), 0.0,
+                      255.0).to(torch.uint8)
 
-    r = torch.arange(h, device=image.device)[:, None]
-    c = torch.arange(w, device=image.device)[None, :]
-    interior = (r > 0) & (r < h - 1) & (c > 0) & (c < w - 1)
-    return torch.where((interior & ~skip)[..., None], out, image)
+    r = row0 + torch.arange(h, device=dev)[:, None]
+    c = torch.arange(w, device=dev)[None, :]
+    interior = (r > 0) & (r < total_height - 1) & (c > 0) & (c < w - 1)
+    return torch.where((interior & ~skip)[..., None], out, image_ext[1:-1])
+
+
+def fxaa_torch(image: torch.Tensor) -> torch.Tensor:
+    """Plain FXAA on a (H, W, 3) uint8 frame → (H, W, 3) uint8: the band
+    form on the frame edge-padded by one row (fxaa.py:114-117)."""
+    h = image.shape[0]
+    ys = torch.clamp(torch.arange(-1, h + 1, device=image.device), 0, h - 1)
+    return fxaa_ext_torch(image[ys], 0, h)
 
 
 def fxaa_batch_torch(images: torch.Tensor) -> torch.Tensor:
@@ -111,25 +131,38 @@ def fxaa_batch_torch(images: torch.Tensor) -> torch.Tensor:
     return torch.stack([fxaa_torch(img) for img in images])
 
 
-def _launch(images: torch.Tensor) -> torch.Tensor:
-    """One launch of csrc/fxaa.cu over a (K, H, W, 3) uint8 batch."""
+def _launch(images: torch.Tensor, halo: bool = False, row0: int = 0,
+            total_height: int | None = None) -> torch.Tensor:
+    """One launch of csrc/fxaa.cu over a (K, rows, W, 3) uint8 stack: K
+    whole frames (rows = H) or, with halo, K bands of rows - 2 rows with
+    their halo rows, placed at row0 in frames of total_height rows."""
     from raytracing_cuda_tpu_torch import _build
 
     if (images.dtype != torch.uint8 or images.ndim != 4
             or images.shape[3] != 3 or not images.is_contiguous()):
         raise ValueError(f"fxaa takes contiguous (H, W, 3) uint8 frames, "
                          f"got {images.dtype} {tuple(images.shape)}")
-    if not 1 <= images.shape[0] <= 65535:
-        raise ValueError(f"K = {images.shape[0]} frames; the kernel takes 1 "
-                         f"to 65535")
+    K, rows, W = images.shape[:3]
+    h = rows - 2 if halo else rows
+    if not 1 <= K <= 65535:
+        raise ValueError(f"K = {K} frames; the kernel takes 1 to 65535")
+    if h < 1 or W < 1:
+        raise ValueError(f"empty band: {h} rows of {W} pixels")
+    total_height = h if total_height is None else total_height
     lib = _build.load("fxaa")
     fn = lib.rt_fxaa
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty_like(images)
-    stream = torch.cuda.current_stream(images.device).cuda_stream
-    err = fn(images.data_ptr(), out.data_ptr(), *images.shape[:3], stream)
+    out = torch.empty((K, h, W, 3), dtype=torch.uint8, device=images.device)
+    # the kernel reads band row 0 (below the halo row) and the rows around
+    # it; a full frame's border rows pass through and read nothing outside
+    band0 = images.data_ptr() + (W * 3 if halo else 0)
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = fn(band0, rows * W * 3, out.data_ptr(), K, h, W, int(row0),
+                 int(total_height), stream)
     _build.check(lib, err, "fxaa kernel launch")
     return out
 
@@ -167,6 +200,29 @@ def fxaa_batch(images: torch.Tensor) -> torch.Tensor:
 
 fxaa_batch.launches = 0
 fxaa_batch.frames = 0
+
+
+def fxaa_ext(image_ext: torch.Tensor, row0: int,
+             total_height: int) -> torch.Tensor:
+    """FXAA on a halo'd row band, (h + 2, W, 3) uint8 → (h, W, 3) uint8,
+    or on K frames' bands at once, (K, h + 2, W, 3) → (K, h, W, 3) in one
+    launch (gridDim.z = K). The band form of fxaa_ext_pallas
+    (fxaa.py:232-283) that row-sharded frames run. CPU tensors run
+    fxaa_ext_torch; CUDA tensors launch csrc/fxaa.cu, counting one launch
+    and K frames."""
+    if image_ext.device.type == "cpu":
+        return fxaa_ext_torch(image_ext, row0, total_height)
+    _on_cuda(image_ext)
+    single = image_ext.ndim == 3
+    out = _launch(image_ext[None] if single else image_ext, halo=True,
+                  row0=row0, total_height=total_height)
+    fxaa_ext.launches += 1
+    fxaa_ext.frames += out.shape[0]
+    return out[0] if single else out
+
+
+fxaa_ext.launches = 0
+fxaa_ext.frames = 0
 
 
 def apply_fxaa(image: torch.Tensor, enabled: bool) -> torch.Tensor:

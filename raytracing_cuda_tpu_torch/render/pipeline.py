@@ -124,20 +124,31 @@ def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
     return coefs, params, packs[0][2], packs[0][3], states
 
 
-def frames_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
-                      sky_pack, sky_h: int, sky_w: int, states,
-                      height: int, width: int) -> torch.Tensor:
-    """Device half of a K-frame batch on the device of `coefs`: one kernel A
-    launch, the per-frame sky lookup + quantize, one kernel B launch, then
-    each frame's `aa` flag picks FXAA or the base frame (pipeline.py:276)
-    → (K, height, width, 3) uint8. day_frac is each state's host
-    day_time / 24, as in _base."""
+def bases_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
+                     sky_pack, sky_h: int, sky_w: int, states, height: int,
+                     width: int, row0: int = 0, total_h=None) -> torch.Tensor:
+    """Device half of K frames before FXAA, on the device of `coefs`: one
+    kernel A launch, then the per-frame sky lookup + quantize → (K, height,
+    width, 3) uint8. day_frac is each state's host day_time / 24, as in
+    _base. row0/total_h place a band of `height` rows in frames of total_h
+    rows (parallel/mesh.py)."""
     r, g, b, mw, mdx, mdy, mdz = raytrace_planes_batch(
-        coefs, params, height, width, n_tri_rows, n_sph_rows)
+        coefs, params, height, width, n_tri_rows, n_sph_rows, row0, total_h)
     sky = sample_sky_packed_pair_batch(
         sky_pack, sky_h, sky_w, torch.stack([mdx, mdy, mdz], dim=-1),
         [st.day_time / 24.0 for st in states], [st.sky_vars for st in states])
-    base = quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    return quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+
+
+def frames_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
+                      sky_pack, sky_h: int, sky_w: int, states,
+                      height: int, width: int) -> torch.Tensor:
+    """Device half of a K-frame batch on the device of `coefs`: the bases
+    (bases_from_packs), one kernel B launch, then each frame's `aa` flag
+    picks FXAA or the base frame (pipeline.py:276) → (K, height, width, 3)
+    uint8."""
+    base = bases_from_packs(coefs, params, n_tri_rows, n_sph_rows, sky_pack,
+                            sky_h, sky_w, states, height, width)
     imgs = fxaa_batch(base)
     for k, st in enumerate(states):     # device copies, no host round trip
         if not bool(st.aa):

@@ -19,6 +19,9 @@ class RenderConfig:
     sky_source: str = "procedural"  # or 'auto' (→ procedural)
     procedural_sky_shape: tuple = (2048, 4096)
     aspect: float | None = None  # None → width/height
+    shard_interleave: int = 1    # sharded engines: strided sub-bands per
+    # device (device d renders row chunks d, d+n, …); 1 = contiguous bands.
+    # The frame is bit-identical either way.
     # NOTE: the reference initializes camera corners with aspect = 1.7777
     # (scene.cpp:20) and refreshes them only on mouse motion; set
     # aspect=1.7777 to reproduce that quirk.
@@ -42,3 +45,6 @@ class RenderConfig:
                              f">= 8, got {self.procedural_sky_shape!r}")
         if self.aspect is not None and not self.aspect > 0:
             raise ValueError(f"aspect must be positive, got {self.aspect}")
+        if self.shard_interleave < 1:
+            raise ValueError(f"shard_interleave must be >= 1, got "
+                             f"{self.shard_interleave}")

@@ -173,7 +173,8 @@ def test_box_downsample_semantics():
 
 @pytest.mark.parametrize("argv", [
     ["window"], ["bench", "--path", "fast"], ["render", "--path", "oracle"],
-    ["record", "--dp", "2"], ["record", "--dp-rows", "2"],
+    ["record", "--dp", "-2"], ["record", "--dp-rows", "-2"],
+    ["render", "--dp", "2"], ["bench", "--dp-rows", "2"],
     ["render", "--ssaa", "0"], ["bench", "--ssaa", "2"],
     ["render", "--size", "1280"], ["render", "--sky-shape", "x64"],
     ["render", "--sky", "reference"], ["render", "--size", "1x1"],

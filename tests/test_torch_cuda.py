@@ -20,9 +20,11 @@ import pytest
 import torch
 
 from chip_smoke import (CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE, golden_stats,
-                        make_state, states_equal, varied_actions)
+                        halo_bands, make_state, states_equal, varied_actions)
 from raytracing_cuda_tpu_torch import __main__ as cli
 from raytracing_cuda_tpu_torch.app.loop import Engine
+from raytracing_cuda_tpu_torch.parallel.mesh import (render_frame_sharded,
+                                                     replicate)
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
 from raytracing_cuda_tpu_torch.render.pipeline import host_packs
 from raytracing_cuda_tpu_torch.scene import builders as tb
@@ -36,9 +38,9 @@ H, W = 96, 160
 SKY = (64, 128)
 
 
-def small_engine(device="cpu", **kw) -> Engine:
+def small_engine(device="cpu", sharded=False, **kw) -> Engine:
     return Engine(RenderConfig(width=W, height=H, procedural_sky_shape=SKY,
-                               **kw), device=device)
+                               **kw), device=device, sharded=sharded)
 
 
 @pytest.fixture(scope="module")
@@ -192,3 +194,65 @@ def test_record_720p_matches_engine(dev, tmp_path):
         img = eng.step_and_frame(cli.scripted_action(i), cli.RECORD_DT)
         assert np.array_equal(load_png(os.path.join(out, f"{i:04d}.png")),
                               img.cpu().numpy()), i
+
+
+def _noise(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, shape + (3,)).astype(np.uint8))
+
+
+@pytest.mark.parametrize("shape,n", [((96, 160), 4), ((96, 160), 8),
+                                     ((720, 1280), 4), ((720, 1280), 8)])
+def test_fxaa_band_kernel_matches_plain(dev, shape, n):
+    """Bands with row0 != 0 and halo rows: each equals its plain version,
+    and the bands assembled equal the full-frame kernel."""
+    img = _noise(shape, 2).to(dev)
+    before = (fxaa.fxaa_ext.launches, fxaa.fxaa_ext.frames)
+    parts = []
+    for row0, ext in halo_bands(img, n):
+        out = fxaa.fxaa_ext(ext, row0, shape[0])
+        assert torch.equal(out, fxaa.fxaa_ext_torch(ext, row0, shape[0]))
+        parts.append(out)
+    torch.cuda.synchronize()
+    assert (fxaa.fxaa_ext.launches, fxaa.fxaa_ext.frames) == (
+        before[0] + n, before[1] + n)
+    assert torch.equal(torch.cat(parts), fxaa.fxaa(img))
+    # K frames' bands in one launch
+    row0, _ = list(halo_bands(img, n))[1]
+    stack = torch.stack([list(halo_bands(_noise(shape, s).to(dev), n))[1][1]
+                         for s in range(3)])
+    assert torch.equal(fxaa.fxaa_ext(stack, row0, shape[0]),
+                       fxaa.fxaa_ext_torch(stack, row0, shape[0]))
+
+
+@pytest.mark.parametrize("name", ["island_morning", "evening_flood_noaa"])
+def test_sharded_frame_matches_engine(dev, name):
+    eng = small_engine("cuda")
+    st = make_state(**CASES[name])
+    eng.set_state(st)
+    ref = eng.frame()
+    for n, il in ((4, 1), (4, 2), (8, 1)):
+        img = render_frame_sharded(
+            eng.scene, st, replicate(eng.sky_pack, ["cuda:0"]), eng.sky_h,
+            eng.sky_w, mesh=["cuda:0"] * n, height=H, width=W, interleave=il,
+            tri_clusters=eng.tri_clusters, sph_clusters=eng.sph_clusters,
+            t_subs=eng.tri_subs)
+        assert torch.equal(img, ref), (n, il)
+    sharded = small_engine("cuda", sharded=["cuda:0"] * 4)
+    sharded.set_state(st)
+    assert torch.equal(sharded.frame(), ref)
+
+
+def test_render_script_dp_and_hybrid_match_sequence(dev):
+    acts = varied_actions(8)
+    eng = small_engine("cuda", shard_interleave=2)
+    st0 = make_state(9.5)
+    eng.set_state(st0)
+    seq = torch.stack([eng.step_and_frame(a, 0.05) for a in acts])
+    end = eng.state
+    for kw in (dict(mesh=["cuda:0"] * 2),
+               dict(n_rows=2, mesh=[["cuda:0"] * 2] * 2)):
+        eng.set_state(st0)
+        imgs = eng.render_script_dp(acts, dt=0.05, **kw)
+        assert torch.equal(imgs, seq), kw
+        assert states_equal(eng.state, end)
