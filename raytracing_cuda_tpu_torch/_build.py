@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled by nvcc into its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ctypes. Libraries go to `_build/` beside this file, named by a
 hash of the source and the flags, so an edited source builds anew and an
-unchanged one is reused. A file lock serialises builds between processes.
+unchanged one is reused. A lock file per library serialises builds of it
+between processes and threads; different libraries build in parallel.
 `build` is the same scheme for any compiler (utils/frameio.py uses it with
 g++ for the native PNG writer).
 
@@ -65,15 +66,19 @@ def lib_path(name: str, source: Path, flags, build_dir: Path = BUILD_DIR
 def build(name: str, source: Path, compiler: Callable[[], str], flags,
           libs=(), build_dir: Path = BUILD_DIR) -> Path:
     """Compile `source` into a shared library under build_dir (once per
-    source and flags; the build dir's lock serialises processes) → its
-    path. `compiler()` names the compiler and is asked only when a build
-    is needed. Raises RuntimeError when the compiler fails."""
+    source and flags; the library's lock file serialises its builders) →
+    its path. `compiler()` names the compiler and is asked only when a build
+    is needed. The compiler's output is kept beside the library (.log) and
+    read into BUILD_LOG; a library without it is built again, so BUILD_LOG
+    always holds the output of the build that made the library. Raises
+    RuntimeError when the compiler fails."""
     out = lib_path(name, source, (*flags, *libs), build_dir)
+    saved = out.with_suffix(".log")
     build_dir.mkdir(parents=True, exist_ok=True)
-    with open(build_dir / ".lock", "w") as lock:
+    with open(build_dir / f".{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if not out.exists():
+            if not (out.exists() and saved.exists()):
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [compiler(), *flags, "-o", str(tmp), str(source),
                        *libs]
@@ -84,11 +89,14 @@ def build(name: str, source: Path, compiler: Callable[[], str], flags,
                         f"{cmd[0]} failed for {source.name} (rc "
                         f"{proc.returncode}):\n{' '.join(cmd)}\n"
                         f"{proc.stdout}\n{proc.stderr}")
+                log = proc.stderr.strip()
+                saved.write_text(log)
                 os.replace(tmp, out)
                 BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                                   "ptxas": proc.stderr.strip()}
+                                   "ptxas": log}
             else:
-                BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "cached"})
+                BUILD_LOG.setdefault(name, {"seconds": 0.0,
+                                            "ptxas": saved.read_text()})
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return out

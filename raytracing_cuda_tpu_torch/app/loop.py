@@ -97,6 +97,9 @@ class Engine:
         self.tri_clusters = TRI_CLUSTERS.get(config.scene)
         self.sph_clusters = SPH_CLUSTERS.get(config.scene)
         self.tri_subs = TRI_SUBS.get(config.scene)
+        # the packs' last cull table for kernel A, on the host and on the
+        # engine device (copied again only when the packs' table changes)
+        self._cull = (None, None)
         # per-frame upload buffers, one set per batch size K, allocated at
         # its first use: the device buffer the kernels read and (on CUDA) a
         # pinned host staging buffer whose copy-done event gates the next
@@ -211,25 +214,36 @@ class Engine:
             copied.record()
         return dev_buf[:n].view(coefs.shape), dev_buf[n:].view(params.shape)
 
-    def _bands(self, coefs, params, n_tri: int, n_sph: int, states):
+    def _cull_on_device(self, cull):
+        """The packs' cull table on the engine device; a host-to-device
+        copy only when it differs from the last one (a per-frame copy from
+        pageable memory would wait for the stream)."""
+        host, dev = self._cull
+        if host is None or not torch.equal(host, cull):
+            self._cull = host, dev = cull, cull.to(self.device)
+        return dev
+
+    def _bands(self, coefs, params, n_tri: int, n_sph: int, cull, states):
         """K frames in row bands over the engine's mesh → (K, H, W, 3)
         uint8 on the engine device."""
         c = self.config
         return render_bands(coefs, params, n_tri, n_sph, states,
                             self._sky_packs, self.sky_h, self.sky_w,
                             mesh=self.mesh, height=c.height, width=c.width,
-                            interleave=c.shard_interleave).to(self.device)
+                            interleave=c.shard_interleave,
+                            cull=self._cull_on_device(cull)).to(self.device)
 
     def frame(self) -> torch.Tensor:
         """Render the current state → (H, W, 3) uint8 on the engine device."""
         c = self.config
-        coef, params, n_tri, n_sph = self._packs()
+        coef, params, n_tri, n_sph, cull = self._packs()
         if self.mesh is not None:
-            return self._bands(coef[None], params[None], n_tri, n_sph,
+            return self._bands(coef[None], params[None], n_tri, n_sph, cull,
                                [self.state])[0]
         coef_d, params_d = self._upload(coef[None], params[None])
         base = _base(coef_d[0], params_d[0], n_tri, n_sph, self.sky_pack,
-                     self.sky_h, self.sky_w, self.state, c.height, c.width)
+                     self.sky_h, self.sky_w, self.state, c.height, c.width,
+                     self._cull_on_device(cull))
         return apply_fxaa(base, bool(self.state.aa))
 
     def step_and_frame(self, action: Action | None = None,
@@ -247,17 +261,18 @@ class Engine:
         if isinstance(actions, (list, tuple)) and dts is None:
             dts = [1 / 60] * len(actions)
         c = self.config
-        coefs, params, n_tri, n_sph, states = batch_packs(
+        coefs, params, n_tri, n_sph, cull, states = batch_packs(
             self.scene, self.state, pack_actions(actions, dts), c.height,
             c.width, c.aspect, self.tri_clusters, self.sph_clusters,
             self.tri_subs)
         if self.mesh is not None:
-            imgs = self._bands(coefs, params, n_tri, n_sph, states)
+            imgs = self._bands(coefs, params, n_tri, n_sph, cull, states)
         else:
             coefs_d, params_d = self._upload(coefs, params)
             imgs = frames_from_packs(coefs_d, params_d, n_tri, n_sph,
                                      self.sky_pack, self.sky_h, self.sky_w,
-                                     states, c.height, c.width)
+                                     states, c.height, c.width,
+                                     self._cull_on_device(cull))
         self.state = states[-1]
         return imgs
 

@@ -93,7 +93,7 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
     vecs = pack_actions(action_vecs, None)
     per = _blocks(len(vecs), len(mesh), "frame axis")
     band_rows(height, len(mesh[0]), interleave)
-    coefs, params, nt, ns, states = batch_packs(
+    coefs, params, nt, ns, cull, states = batch_packs(
         scene, state, vecs, height, width, aspect, tri_clusters,
         sph_clusters, t_subs)
     first = mesh[0][0]
@@ -102,6 +102,6 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
         s = slice(g * per, (g + 1) * per)
         blocks.append(render_bands(
             coefs[s], params[s], nt, ns, states[s], sky_packs, sky_h, sky_w,
-            mesh=group, height=height, width=width,
-            interleave=interleave).to(first, non_blocking=True))
+            mesh=group, height=height, width=width, interleave=interleave,
+            cull=cull).to(first, non_blocking=True))
     return torch.cat(blocks), states[-1]

@@ -101,15 +101,17 @@ def band_rows(height: int, n: int, interleave: int) -> int:
 def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
                  sky_packs: dict, sky_h: int, sky_w: int, *, mesh,
                  height: int, width: int, interleave: int = 1,
-                 aa=None) -> torch.Tensor:
+                 aa=None, cull=None) -> torch.Tensor:
     """K frames rendered in row bands over mesh → (K, height, width, 3)
     uint8 on mesh[0], rows in frame order.
 
     coefs (K, n, C) and params (K, P) are the frames' packs (batch_packs);
     sky_packs maps every device of mesh to its copy of the static sky
     stack; aa[k] (default: state k's toggle) says whether frame k is
-    filtered. Chunk c runs on mesh[c % n], so device d renders chunks
-    d, d + n, … (`interleave` of them; contiguous bands at 1). The body of
+    filtered; cull is the packs' cull table (copied to each device, read
+    by the CUDA kernel only). Chunk c runs on mesh[c % n], so device d
+    renders chunks d, d + n, … (`interleave` of them; contiguous bands at
+    1). The body of
     band_shard_fn (mesh.py:68-161), with the K frames of a frame group in
     each launch as render_script_hybrid maps it over local frames.
     """
@@ -118,15 +120,19 @@ def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
     sub = band_rows(height, n, interleave)
     chunks = n * interleave
     aa = [bool(st.aa) for st in states] if aa is None else list(aa)
-    packs = {d: (coefs.to(d), params.to(d)) for d in dict.fromkeys(mesh)}
+    packs = {d: (coefs.to(d), params.to(d),
+                 None if cull is None else cull.to(d))
+             for d in dict.fromkeys(mesh)}
 
     # every chunk's quantized rows on its device
     bases = []
     for c in range(chunks):
         dev = mesh[c % n]
+        coefs_d, params_d, cull_d = packs[dev]
         bases.append(bases_from_packs(
-            *packs[dev], n_tri_rows, n_sph_rows, sky_packs[dev], sky_h,
-            sky_w, states, sub, width, row0=c * sub, total_h=height))
+            coefs_d, params_d, n_tri_rows, n_sph_rows, sky_packs[dev], sky_h,
+            sky_w, states, sub, width, row0=c * sub, total_h=height,
+            cull=cull_d))
     if not any(aa):
         return torch.cat([b.to(mesh[0]) for b in bases], dim=1)
 
@@ -168,9 +174,10 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
     contiguous band (mesh.py:200-209)."""
     mesh = as_mesh(mesh)
     band_rows(height, len(mesh), interleave)
-    coef, params, nt, ns = host_packs(scene, state, height, width, aspect,
-                                      tri_clusters, sph_clusters, t_subs)
+    coef, params, nt, ns, cull = host_packs(scene, state, height, width,
+                                            aspect, tri_clusters,
+                                            sph_clusters, t_subs)
     aa = bool(state.aa) if fxaa_static is None else bool(fxaa_static)
     return render_bands(coef[None], params[None], nt, ns, [state], sky_packs,
                         sky_h, sky_w, mesh=mesh, height=height, width=width,
-                        interleave=interleave, aa=[aa])[0]
+                        interleave=interleave, aa=[aa], cull=cull)[0]

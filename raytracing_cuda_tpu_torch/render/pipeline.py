@@ -21,9 +21,9 @@ import torch
 
 from raytracing_cuda_tpu_torch.core.types import Scene
 from raytracing_cuda_tpu_torch.render.cuda_rt import (
-    MAX_CLUSTERS, P_CLUSTERS, cluster_bounds, pack_params, pack_scene,
-    raytrace_planes, raytrace_planes_batch, sph_cluster_norm,
-    tri_cluster_pads)
+    MAX_CLUSTERS, P_CLUSTERS, cluster_bounds, cull_groups, cull_table,
+    pack_params, pack_scene, raytrace_planes, raytrace_planes_batch,
+    sph_cluster_norm, tri_cluster_pads)
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa, fxaa_batch
 from raytracing_cuda_tpu_torch.scene.textures import (
     sample_sky_packed_pair, sample_sky_packed_pair_batch)
@@ -42,7 +42,9 @@ def host_packs(scene: Scene, state: FrameState, height: int, width: int,
                sph_clusters=None, t_subs=None):
     """Host half of a frame (derive_frame, camera_rays, then the packing of
     render_base_planes_pallas, pallas_rt.py:1226-1254) → (coef, params,
-    n_tri_rows, n_sph_rows), float32 on the host."""
+    n_tri_rows, n_sph_rows, cull) on the host: the float32 table and
+    params, and kernel A's int32 cull table (cull_table), whose group g
+    holds the rows under the bound written into params as bound g."""
     if t_subs and not tri_clusters:
         raise ValueError("t_subs requires tri_clusters")
     if aspect is None:
@@ -57,18 +59,22 @@ def host_packs(scene: Scene, state: FrameState, height: int, width: int,
         raise ValueError(f"{bounds.numel() // 4} cull bounds exceed "
                          f"MAX_CLUSTERS={MAX_CLUSTERS}")
     params[P_CLUSTERS:P_CLUSTERS + bounds.numel()] = bounds
+    groups = cull_groups(scene_f.n_triangles, scene_f.n_spheres,
+                         tri_clusters, sph_clusters, t_subs)
     n_tri_rows = sum(tri_cluster_pads(scene_f.n_triangles, tri_clusters))
     n_sph_rows = sum(sph_cluster_norm(scene_f.n_spheres, sph_clusters)[1])
-    return coef, params, n_tri_rows, n_sph_rows
+    return coef, params, n_tri_rows, n_sph_rows, cull_table(coef, groups)
 
 
 def _base(coef, params, n_tri_rows: int, n_sph_rows: int, sky_pack,
           sky_h: int, sky_w: int, state: FrameState, height: int,
-          width: int) -> torch.Tensor:
+          width: int, cull=None) -> torch.Tensor:
     """Device half before FXAA: megakernel + deferred sky + quantize →
-    (height, width, 3) uint8 on the device of `coef`."""
+    (height, width, 3) uint8 on the device of `coef`. cull: host_packs'
+    cull table on that device (read by the CUDA kernel only)."""
     r, g, b, mw, mdx, mdy, mdz = raytrace_planes(coef, params, height, width,
-                                                 n_tri_rows, n_sph_rows)
+                                                 n_tri_rows, n_sph_rows,
+                                                 cull=cull)
     mdir = torch.stack([mdx, mdy, mdz], dim=-1)
     sky = sample_sky_packed_pair(sky_pack, sky_h, sky_w, mdir,
                                  state.day_time / 24.0, state.sky_vars)
@@ -81,11 +87,12 @@ def render_frame_static_sky(scene: Scene, state: FrameState, sky_pack,
                             sph_clusters=None, t_subs=None) -> torch.Tensor:
     """One frame from the static (4, H*W) sky stack → (H, W, 3) uint8 on the
     device of `sky_pack`."""
-    coef, params, nt, ns = host_packs(scene, state, height, width, aspect,
-                                      tri_clusters, sph_clusters, t_subs)
+    coef, params, nt, ns, cull = host_packs(scene, state, height, width,
+                                            aspect, tri_clusters,
+                                            sph_clusters, t_subs)
     dev = sky_pack.device
     base = _base(coef.to(dev), params.to(dev), nt, ns, sky_pack, sky_h, sky_w,
-                 state, height, width)
+                 state, height, width, cull.to(dev))
     return apply_fxaa(base, bool(state.aa))
 
 
@@ -109,8 +116,9 @@ def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
     """Host half of a K-frame batch: step the state machine once per packed
     action (pipeline.py:201-206), then each new state's host_packs, stacked
     → (coefs (K, n, N_CHANNELS), params (K, N_PARAMS), n_tri_rows,
-    n_sph_rows, states). Per-frame packs, so frame k's are bit-identical to
-    what the single-frame path packs for states[k]."""
+    n_sph_rows, cull, states). Per-frame packs, so frame k's are
+    bit-identical to what the single-frame path packs for states[k]; the
+    frames share one scene layout and so one cull table."""
     if len(vecs) < 1:
         raise ValueError("a batch needs at least one frame")
     states = []
@@ -121,19 +129,22 @@ def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
                         sph_clusters, t_subs) for st in states]
     coefs = torch.stack([p[0] for p in packs])
     params = torch.stack([p[1] for p in packs])
-    return coefs, params, packs[0][2], packs[0][3], states
+    return coefs, params, *packs[0][2:], states
 
 
 def bases_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
                      sky_pack, sky_h: int, sky_w: int, states, height: int,
-                     width: int, row0: int = 0, total_h=None) -> torch.Tensor:
+                     width: int, row0: int = 0, total_h=None,
+                     cull=None) -> torch.Tensor:
     """Device half of K frames before FXAA, on the device of `coefs`: one
-    kernel A launch, then the per-frame sky lookup + quantize → (K, height,
-    width, 3) uint8. day_frac is each state's host day_time / 24, as in
-    _base. row0/total_h place a band of `height` rows in frames of total_h
-    rows (parallel/mesh.py)."""
+    kernel A launch (culling by `cull`, the packs' cull table on that
+    device), then the per-frame sky lookup + quantize → (K, height, width,
+    3) uint8. day_frac is each state's host day_time / 24, as in _base.
+    row0/total_h place a band of `height` rows in frames of total_h rows
+    (parallel/mesh.py)."""
     r, g, b, mw, mdx, mdy, mdz = raytrace_planes_batch(
-        coefs, params, height, width, n_tri_rows, n_sph_rows, row0, total_h)
+        coefs, params, height, width, n_tri_rows, n_sph_rows, row0, total_h,
+        cull)
     sky = sample_sky_packed_pair_batch(
         sky_pack, sky_h, sky_w, torch.stack([mdx, mdy, mdz], dim=-1),
         [st.day_time / 24.0 for st in states], [st.sky_vars for st in states])
@@ -142,13 +153,13 @@ def bases_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
 
 def frames_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
                       sky_pack, sky_h: int, sky_w: int, states,
-                      height: int, width: int) -> torch.Tensor:
+                      height: int, width: int, cull=None) -> torch.Tensor:
     """Device half of a K-frame batch on the device of `coefs`: the bases
     (bases_from_packs), one kernel B launch, then each frame's `aa` flag
     picks FXAA or the base frame (pipeline.py:276) → (K, height, width, 3)
     uint8."""
     base = bases_from_packs(coefs, params, n_tri_rows, n_sph_rows, sky_pack,
-                            sky_h, sky_w, states, height, width)
+                            sky_h, sky_w, states, height, width, cull=cull)
     imgs = fxaa_batch(base)
     for k, st in enumerate(states):     # device copies, no host round trip
         if not bool(st.aa):
@@ -163,7 +174,7 @@ def render_frames_batch(scene: Scene, state: FrameState, sky_pack,
     """K frames of packed (K, 16) actions from `state`, each kernel launched
     once for the batch → (imgs (K, H, W, 3) uint8 on the device of
     `sky_pack`, last_state)."""
-    coefs, params, nt, ns, states = batch_packs(
+    coefs, params, nt, ns, cull, states = batch_packs(
         scene, state, pack_actions(action_vecs, None), height, width,
         aspect, tri_clusters, sph_clusters, t_subs)
     n = coefs.numel()
@@ -171,5 +182,6 @@ def render_frames_batch(scene: Scene, state: FrameState, sky_pack,
         sky_pack.device)                                    # one upload
     imgs = frames_from_packs(buf[:n].view(coefs.shape),
                              buf[n:].view(params.shape), nt, ns, sky_pack,
-                             sky_h, sky_w, states, height, width)
+                             sky_h, sky_w, states, height, width,
+                             cull.to(sky_pack.device))
     return imgs, states[-1]

@@ -11,6 +11,8 @@ the same order with the same rounding (the kernels are built with
 plain version must agree bit for bit on the card. Against the CPU plain
 versions (other exp2/log2 implementations), frames must meet the golden
 contract: RMSE < 2e-3 and < 0.3 % of pixels off by more than 2 levels.
+Kernel A culls per ray from the scene's cull table, which the brute-force
+plain version does not read: the culls must leave every plane bit for bit.
 """
 
 import os
@@ -19,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE, golden_stats,
-                        halo_bands, make_state, states_equal, varied_actions)
+from chip_smoke import (CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE, POSES,
+                        golden_stats, halo_bands, make_state, states_equal,
+                        varied_actions)
 from raytracing_cuda_tpu_torch import __main__ as cli
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.parallel.mesh import (render_frame_sharded,
@@ -50,22 +53,31 @@ def dev():
     return torch.device("cuda")
 
 
-def _packs(name, dev):
+ISLAND = (tb.ISLAND_TRI_CLUSTERS, tb.ISLAND_SPH_CLUSTERS, tb.ISLAND_TRI_SUBS)
+
+
+def _scene_state(name):
+    """(scene, state, cluster partitions) of a pose or the classic scene."""
     if name == "classic":
         eng = small_engine(scene="classic")
-        scene, st, tc, sc = eng.scene, eng.state, None, None
-    else:
-        scene, st = tb.build_scene(), make_state(**CASES[name])
-        tc, sc = tb.ISLAND_TRI_CLUSTERS, tb.ISLAND_SPH_CLUSTERS
-    coef, params, nt, ns = host_packs(scene, st, H, W, None, tc, sc)
-    return coef.to(dev), params.to(dev), nt, ns
+        return eng.scene, eng.state, (None, None, None)
+    return tb.build_scene(), make_state(**POSES[name]), ISLAND
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["classic"])
+def _packs(name, dev):
+    """(coef, params, n_tri_rows, n_sph_rows, cull table) on dev."""
+    scene, st, clusters = _scene_state(name)
+    coef, params, nt, ns, cull = host_packs(scene, st, H, W, None,
+                                            *clusters)
+    return coef.to(dev), params.to(dev), nt, ns, cull.to(dev)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose", "classic"])
 def test_raytrace_kernel_matches_plain(dev, name):
-    coef, params, nt, ns = _packs(name, dev)
+    coef, params, nt, ns, cull = _packs(name, dev)
     before = cuda_rt.raytrace_planes.launches
-    kern = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns))
+    kern = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns,
+                                               cull=cull))
     torch.cuda.synchronize()
     assert cuda_rt.raytrace_planes.launches == before + 1
     plain = torch.stack(cuda_rt.raytrace_planes_torch(coef, params, H, W, nt,
@@ -74,11 +86,46 @@ def test_raytrace_kernel_matches_plain(dev, name):
 
 
 def test_raytrace_kernel_row_band(dev):
-    coef, params, nt, ns = _packs("mountains_day", dev)
-    full = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns))
+    coef, params, nt, ns, cull = _packs("mountains_day", dev)
+    full = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns,
+                                               cull=cull))
     band = torch.stack(cuda_rt.raytrace_planes(coef, params, 32, W, nt, ns,
-                                               row0=40, total_h=H))
+                                               row0=40, total_h=H, cull=cull))
     assert torch.equal(band, full[:, 40:72])
+
+
+@pytest.mark.parametrize("name", ["island_morning", "mountains_day",
+                                  "worst_pose", "classic"])
+def test_raytrace_counting_launch_between_plain_and_brute_force(dev, name):
+    """The counting launch renders the same planes. Its lanes need no more
+    cast-ray row tests than the plain version's per-ray count (their t-bound
+    only shrinks below the plane's hit), and exactly its unoccluded shadow
+    rays' tests plus at most every blocking row per occluded shadow ray;
+    each row test a warp executes serves 1 to 32 lanes."""
+    coef, params, nt, ns, cull = _packs(name, dev)
+    scene = _scene_state(name)[0]
+    before = (cuda_rt.raytrace_planes.launches,
+              cuda_rt.raytrace_planes_batch.launches)
+    planes, c = cuda_rt.raytrace_planes_count(coef[None], params[None], H, W,
+                                              nt, ns, cull=cull)
+    assert (cuda_rt.raytrace_planes.launches,
+            cuda_rt.raytrace_planes_batch.launches) == before
+    work = dict.fromkeys(cuda_rt.WORK_KEYS, 0)
+    plain = cuda_rt.raytrace_planes_torch(coef, params, H, W, nt, ns,
+                                          work=work, cull=cull)
+    assert all(torch.equal(a[0], b) for a, b in zip(planes, plain))
+    rows = scene.n_triangles + scene.n_spheres
+    blocking = scene.n_triangles + int((~scene.is_light[
+        scene.sph_gidx.long()]).sum())
+    cast = work["tri_tests"] + work["sph_tests"]
+    shadow = work["shadow_tri_tests"] + work["shadow_sph_tests"]
+    assert 0 < c["cast_lane_rows"] <= cast <= work["rays"] * rows
+    assert (shadow <= c["shadow_lane_rows"]
+            <= shadow + work["occluded"] * blocking
+            <= work["shadow"] * blocking)
+    for kind in ("cast", "shadow"):
+        lanes, warps = c[f"{kind}_lane_rows"], c[f"{kind}_warp_rows"]
+        assert lanes <= 32 * warps and warps <= lanes, (kind, c)
 
 
 @pytest.mark.parametrize("shape", [(96, 160), (720, 1280), (37, 53)])
@@ -104,9 +151,15 @@ def test_engine_cuda_matches_cpu(dev, name):
 
 
 def test_wrappers_reject_bad_inputs(dev):
-    coef, params, nt, ns = _packs("island_morning", dev)
+    coef, params, nt, ns, cull = _packs("island_morning", dev)
     with pytest.raises(ValueError):
-        cuda_rt.raytrace_planes(coef.double(), params, H, W, nt, ns)
+        cuda_rt.raytrace_planes(coef.double(), params, H, W, nt, ns,
+                                cull=cull)
+    with pytest.raises(ValueError, match="cull table"):
+        cuda_rt.raytrace_planes(coef, params, H, W, nt, ns)
+    for bad in (cull.long(), cull.cpu(), cull[:, :2].contiguous()):
+        with pytest.raises(ValueError, match="cull"):
+            cuda_rt.raytrace_planes(coef, params, H, W, nt, ns, cull=bad)
     with pytest.raises(ValueError):
         fxaa.fxaa(torch.zeros((4, 4, 3), dtype=torch.float32, device=dev))
 
@@ -116,18 +169,18 @@ def _batch_packs(dev, n=3):
     st = make_state(6.0)
     states = [make_state(**CASES[c]) for c in sorted(CASES)][:n - 1] + [
         tsim.animate(st, varied_actions(2)[0], 0.5)]
-    packs = [host_packs(scene, s, H, W, None, tb.ISLAND_TRI_CLUSTERS,
-                        tb.ISLAND_SPH_CLUSTERS) for s in states]
+    packs = [host_packs(scene, s, H, W, None, *ISLAND) for s in states]
     return (torch.stack([p[0] for p in packs]).to(dev),
             torch.stack([p[1] for p in packs]).to(dev), packs[0][2],
-            packs[0][3])
+            packs[0][3], packs[0][4].to(dev))
 
 
 def test_raytrace_batch_kernel_matches_plain_and_singles(dev):
-    coefs, params, nt, ns = _batch_packs(dev)
+    coefs, params, nt, ns, cull = _batch_packs(dev)
     before = (cuda_rt.raytrace_planes_batch.launches,
               cuda_rt.raytrace_planes_batch.frames)
-    kern = cuda_rt.raytrace_planes_batch(coefs, params, H, W, nt, ns)
+    kern = cuda_rt.raytrace_planes_batch(coefs, params, H, W, nt, ns,
+                                         cull=cull)
     torch.cuda.synchronize()
     assert (cuda_rt.raytrace_planes_batch.launches,
             cuda_rt.raytrace_planes_batch.frames) == (before[0] + 1,
@@ -135,19 +188,22 @@ def test_raytrace_batch_kernel_matches_plain_and_singles(dev):
     plain = cuda_rt.raytrace_planes_batch_torch(coefs, params, H, W, nt, ns)
     assert all(torch.equal(a, b) for a, b in zip(kern, plain))
     for k in range(3):
-        single = cuda_rt.raytrace_planes(coefs[k], params[k], H, W, nt, ns)
+        single = cuda_rt.raytrace_planes(coefs[k], params[k], H, W, nt, ns,
+                                         cull=cull)
         assert all(torch.equal(p[k], q) for p, q in zip(kern, single)), k
     band = cuda_rt.raytrace_planes_batch(coefs, params, 32, W, nt, ns,
-                                         row0=40, total_h=H)
+                                         row0=40, total_h=H, cull=cull)
     assert all(torch.equal(b, p[:, 40:72]) for b, p in zip(band, kern))
 
 
 def test_batch_wrappers_reject_bad_frame_counts(dev):
-    coefs, params, nt, ns = _batch_packs(dev)
+    coefs, params, nt, ns, cull = _batch_packs(dev)
     with pytest.raises(ValueError):
-        cuda_rt.raytrace_planes_batch(coefs[:0], params[:0], H, W, nt, ns)
+        cuda_rt.raytrace_planes_batch(coefs[:0], params[:0], H, W, nt, ns,
+                                      cull=cull)
     with pytest.raises(ValueError):
-        cuda_rt.raytrace_planes_batch(coefs, params[:2], H, W, nt, ns)
+        cuda_rt.raytrace_planes_batch(coefs, params[:2], H, W, nt, ns,
+                                      cull=cull)
     with pytest.raises(ValueError):
         fxaa.fxaa_batch(torch.zeros((0, 4, 4, 3), dtype=torch.uint8,
                                     device=dev))
@@ -223,6 +279,23 @@ def test_fxaa_band_kernel_matches_plain(dev, shape, n):
                          for s in range(3)])
     assert torch.equal(fxaa.fxaa_ext(stack, row0, shape[0]),
                        fxaa.fxaa_ext_torch(stack, row0, shape[0]))
+
+
+@pytest.mark.parametrize("shape,n", [((36, 53), 4), ((40, 37), 2),
+                                     ((96, 150), 3), ((18, 131), 3)])
+def test_fxaa_odd_width_band_and_batch_forms_exact(dev, shape, n):
+    """Widths whose rows are not 16-byte aligned take the byte path of the
+    tile loads and stores: every band (one launch each and K frames' bands
+    in one launch) and the K-frame form equal their plain versions."""
+    frames = torch.stack([_noise(shape, s) for s in range(3)]).to(dev)
+    assert torch.equal(fxaa.fxaa_batch(frames),
+                       fxaa.fxaa_batch_torch(frames))
+    for c, (row0, ext) in enumerate(halo_bands(frames[0], n)):
+        assert torch.equal(fxaa.fxaa_ext(ext, row0, shape[0]),
+                           fxaa.fxaa_ext_torch(ext, row0, shape[0])), c
+        stack = torch.stack([list(halo_bands(f, n))[c][1] for f in frames])
+        assert torch.equal(fxaa.fxaa_ext(stack, row0, shape[0]),
+                           fxaa.fxaa_ext_torch(stack, row0, shape[0])), c
 
 
 @pytest.mark.parametrize("name", ["island_morning", "evening_flood_noaa"])

@@ -45,8 +45,8 @@ def _env(name):
 def _port_planes(tscene, jstate, tc, sc, h=H, row0=0, total_h=None,
                  chunk=65536):
     st = interop.state_from_numpy(jax_fields(jstate))
-    coef, params, nt, ns = host_packs(tscene, st, total_h or h, W, None, tc,
-                                      sc)
+    coef, params, nt, ns, _ = host_packs(tscene, st, total_h or h, W, None,
+                                         tc, sc)
     return torch.stack(trt.raytrace_planes_torch(
         coef, params, h, W, nt, ns, row0, total_h, chunk)).numpy()
 
@@ -92,7 +92,7 @@ def test_row_band_matches_full_frame():
 def test_wrapper_runs_plain_version_on_cpu():
     js, st, ts, (tc, sc) = _env("island_night")
     tst = interop.state_from_numpy(jax_fields(st))
-    coef, params, nt, ns = host_packs(ts, tst, H, W, None, tc, sc)
+    coef, params, nt, ns, _ = host_packs(ts, tst, H, W, None, tc, sc)
     before = trt.raytrace_planes.launches
     a = torch.stack(trt.raytrace_planes(coef, params, H, W, nt, ns))
     b = torch.stack(trt.raytrace_planes_torch(coef, params, H, W, nt, ns))
@@ -108,7 +108,8 @@ def _island_packs(name):
     """(the frame's derived scene, its packs)."""
     st = interop.state_from_numpy(jax_fields(make_state(**CASES[name])))
     scene = tb.build_scene()
-    coef, params, nt, ns = host_packs(scene, st, H, W, None, *ISLAND_CULL)
+    coef, params, nt, ns, _ = host_packs(scene, st, H, W, None,
+                                         *ISLAND_CULL)
     return derive_frame(scene, st)[0], coef, params, nt, ns
 
 
@@ -192,3 +193,162 @@ def test_work_counts_rows_under_reached_bounds():
         assert 0 < work[key] < most / 3, key
     with pytest.raises(ValueError, match="cull groups"):
         trt.raytrace_planes_torch(coef, params, H, W, nt, ns, work=work)
+
+
+def _cull_packs(name):
+    """(scene, coef, params, n_tri_rows, n_sph_rows, cull groups, cull
+    table) of a pose (chip_smoke.POSES) or the classic scene at H x W."""
+    from chip_smoke import POSES, make_state as port_state
+
+    if name == "classic":
+        scene, st = tb.build_classic_scene(), interop.state_from_numpy(
+            jax_fields(classic_env()[1]))
+        clusters = (None, None, None)
+    else:
+        scene, st, clusters = (tb.build_scene(), port_state(**POSES[name]),
+                               ISLAND_CULL)
+    coef, params, nt, ns, table = host_packs(scene, st, H, W, None,
+                                             *clusters)
+    groups = trt.cull_groups(scene.n_triangles, scene.n_spheres, *clusters)
+    return scene, coef, params, nt, ns, groups, table
+
+
+class _Rays(trt._Work):
+    """_Work that also keeps every cast ray (origin, direction) and every
+    shadow ray (origin, direction, light distance, occluded) it is shown."""
+
+    cast_rays: list = []
+    shadow_rays: list = []
+
+    def cast(self, o, d, t_plane):
+        super().cast(o, d, t_plane)
+        self.cast_rays.append((o, d))
+
+    def shadow(self, o, d, dist, occ):
+        super().shadow(o, d, dist, occ)
+        self.shadow_rays.append((o, d, dist, occ))
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose"])
+def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
+    """The kernel's culls on every ray of a real frame, at every level.
+    A cast ray's winning row lies under a bound that `reach` passes with
+    t_hi = the winning t (the kernel's t_hi, the plane's hit shrunk to the
+    best hit so far, is never smaller); an occluded shadow ray that the sea
+    plane does not occlude has an occluder under a blocking group's bound
+    that `reach` passes with t_hi = its light distance."""
+    scene, coef, params, nt, ns, groups, table = _cull_packs(name)
+    _Rays.cast_rays, _Rays.shadow_rays = [], []
+    monkeypatch.setattr(trt, "_Work", _Rays)
+    trt.raytrace_planes_torch(coef, params, H, W, nt, ns,
+                              work=dict.fromkeys(trt.WORK_KEYS, 0),
+                              cull=groups)
+    bounds = params[trt.P_CLUSTERS:].reshape(-1, 4)[:len(groups)]
+    n_rows = 1 + nt + ns
+    group_of = torch.full((n_rows,), -1, dtype=torch.long)
+    for g, (first, cnt) in enumerate(groups):
+        group_of[first:first + cnt] = g
+    Ct, Cs = coef[1:1 + nt], coef[1 + nt:n_rows]
+    gidx = coef[:n_rows, trt.C_GIDX]
+    sea_y = params[trt.P_SEAY]
+    blocks_row = coef[:n_rows, trt.C_BLOCKS] > 0
+    col = lambda v: v[:, None]                       # noqa: E731
+
+    def row_t(o, d):
+        """(n, n_rows) t of every row (the plane in column 0)."""
+        m = torch.cross(torch.stack(o, 1), torch.stack(d, 1), dim=1)
+        return torch.cat([
+            col(trt._plane_t(o[1], d[1], sea_y)),
+            trt._tri_t(Ct, *map(col, (*o, *d, *m.unbind(1)))),
+            trt._sph_t(Cs, *map(col, (*o, *d)))], dim=1)
+
+    n_cast = n_hit = 0
+    for o, d in _Rays.cast_rays:
+        t = row_t(o, d)
+        t_min = t.amin(1)
+        key = torch.where(t == col(t_min), gidx[None, :],
+                          torch.full_like(t, 2e9))
+        win = key.argmin(1)
+        hit = (t_min < trt.BIG * 0.5) & (win > 0)
+        reached = trt.reach(bounds, *o, *d, t_min)
+        g = group_of[win[hit]]
+        assert (g >= 0).all()
+        assert reached[hit.nonzero().squeeze(1), g].all()
+        n_cast += t.shape[0]
+        n_hit += int(hit.sum())
+    n_occ = 0
+    for o, d, dist, occ in _Rays.shadow_rays:
+        rows = occ & ~(trt._plane_t(o[1], d[1], sea_y) < dist)
+        if not rows.any():
+            continue
+        o, d, dist = [v[rows] for v in o], [v[rows] for v in d], dist[rows]
+        t = row_t(o, d)[:, 1:]
+        occluder = (t < col(dist)) & blocks_row[None, 1:]
+        reached = trt.reach(bounds, *o, *d, dist) & (table[:, 2] > 0)[None]
+        under = group_of[1:]
+        seen = occluder & (under >= 0)[None] & reached[:, under.clamp(min=0)]
+        assert seen.any(1).all()
+        n_occ += int(rows.sum())
+    assert n_cast > H * W and n_hit > H * W // 4 and n_occ > 50
+
+
+@pytest.mark.parametrize("name", ["island_morning", "classic"])
+def test_cull_table_is_cull_groups_with_blocking_flags(name):
+    """The table host_packs builds and the Engine hands the kernel:
+    cull_groups' rows, one group per bound written into params, flagged
+    exactly where the group holds a row that blocks shadow rays."""
+    from raytracing_cuda_tpu_torch.app.loop import Engine
+    from raytracing_cuda_tpu_torch.utils.config import RenderConfig
+
+    scene, coef, params, nt, ns, groups, table = _cull_packs(name)
+    assert table.dtype == torch.int32 and table.shape == (len(groups), 3)
+    assert [tuple(r) for r in table[:, :2].tolist()] == list(groups)
+    bounds = params[trt.P_CLUSTERS:].reshape(-1, 4)
+    assert (bounds[:len(groups), 3] > 0).all()
+    assert not bounds[len(groups):].any()
+    blocking = [int((coef[f:f + c, trt.C_BLOCKS] > 0).any())
+                for f, c in groups]
+    assert table[:, 2].tolist() == blocking
+    if name == "island_morning":            # the sun and moon's cluster
+        assert blocking == [1] * (len(groups) - 1) + [0]
+    eng = Engine(RenderConfig(width=W, height=H, procedural_sky_shape=(32, 64),
+                              scene="classic" if name == "classic"
+                              else "island"), device="cpu")
+    assert torch.equal(eng._packs()[4], table)
+
+
+def test_engine_copies_the_cull_table_once():
+    """The Engine keeps the packs' table on its device and copies it
+    again only when the packs' table changes."""
+    from raytracing_cuda_tpu_torch.app.loop import Engine
+    from raytracing_cuda_tpu_torch.utils.config import RenderConfig
+
+    eng = Engine(RenderConfig(width=W, height=H, procedural_sky_shape=(32, 64)),
+                 device="cpu")
+    table = eng._packs()[4]
+    first = eng._cull_on_device(table)
+    assert torch.equal(first, table)
+    assert eng._cull_on_device(table.clone()) is first
+    other = table.clone()
+    other[0, 1] -= 1
+    assert torch.equal(eng._cull_on_device(other), other)
+
+
+def test_wrappers_ignore_cull_on_cpu():
+    """CPU tensors run the brute-force plain version with or without the
+    cull table; counting work from the table equals counting it from
+    cull_groups."""
+    scene, coef, params, nt, ns, groups, table = _cull_packs("mountains_day")
+    a = trt.raytrace_planes(coef, params, H, W, nt, ns)
+    b = trt.raytrace_planes(coef, params, H, W, nt, ns, cull=table)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c = trt.raytrace_planes_batch(coef[None], params[None], 32, W, nt, ns,
+                                  row0=40, total_h=H, cull=table)
+    assert all(torch.equal(x[0], y[40:72]) for x, y in zip(c, a))
+    counts = []
+    for cull in (groups, table):
+        work = dict.fromkeys(trt.WORK_KEYS, 0)
+        trt.raytrace_planes_torch(coef, params, 32, W, nt, ns, row0=40,
+                                  total_h=H, work=work, cull=cull)
+        counts.append(work)
+    assert counts[0] == counts[1]
