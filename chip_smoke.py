@@ -30,7 +30,15 @@ Phases (any failure exits non-zero):
      frames (FXAA on and off), Engine(sharded=...) driven with its band
      counter, Engine.render_script_dp frame DP and hybrid against
      step_and_frame, and `record --dp` on a one-card machine;
-  9. a JSON line per kernel form (each with its bound, from this run's
+  9. the `fast` and `oracle` render paths and the window's pieces at
+     1280x720: Engine(path=...) frames for the golden states against the
+     720p goldens and the megakernel path's frames, `fast` at two chunk
+     sizes, sky_cache=False, a row-sharded `fast` Engine, and the CLI's
+     `--path fast|oracle` and `window`; then the viewer's loop without a
+     display: step_and_frame_preview against the box downsample of the full
+     frame, and 30 frames through the readback ring, with both kernels'
+     launch counters read around them;
+ 10. a JSON line per kernel form (each with its bound, from this run's
      inputs), the card line, and the final status line.
 """
 
@@ -40,6 +48,7 @@ import argparse
 import ast
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -399,7 +408,8 @@ def main() -> int:
     from raytracing_cuda_tpu_torch import _build
     from raytracing_cuda_tpu_torch.app.loop import Engine
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
-    from raytracing_cuda_tpu_torch.render.pipeline import host_packs, quantize
+    from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+    from raytracing_cuda_tpu_torch.render.reference import quantize
     from raytracing_cuda_tpu_torch.scene.builders import (
         ISLAND_SPH_CLUSTERS, ISLAND_TRI_CLUSTERS, ISLAND_TRI_SUBS,
         build_scene)
@@ -875,10 +885,19 @@ def main() -> int:
         cull=cull), 20)
     bound_a_band = raytrace_bound(work_band, coef[None], params[None], 1,
                                   sub, W)
+    # events around back-to-back launches of a launch this short time the
+    # host's launch rate; a CUDA graph's replay times the device alone
+    graph_a_band = graph_device_ms(lambda: cuda_rt.raytrace_planes_batch(
+        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H,
+        cull=cull), 20)
+    graph_a = graph_device_ms(lambda: cuda_rt.raytrace_planes(
+        coef, params, H, W, nt, ns, cull=cull), 20)
     print(f"kernel A, {sub}-row band at row0 {sub} of 720p island_morning: "
           f"{ms_a_band:.4f} ms (plain {ms_a_band_plain:.4f} ms, bound "
           f"{bound_a_band[0]:.6f} ms, {bound_a_band[1]}) vs full frame "
-          f"{ms_a:.4f} ms (CUDA events) [{card}]", flush=True)
+          f"{ms_a:.4f} ms (CUDA events); device time by CUDA graph replay: "
+          f"band {graph_a_band:.4f} ms, full frame {graph_a:.4f} ms "
+          f"[{card}]", flush=True)
 
     # render_frame_sharded against the Engine frame, FXAA on and off
     mismatch = []
@@ -971,12 +990,232 @@ def main() -> int:
     report["parallel"] = {"fxaa_band_ms": ms_band, "fxaa_full_ms": ms_full,
                           "fxaa_band_device_ms": dev_band,
                           "raytrace_band_ms": ms_a_band,
+                          "raytrace_band_graph_ms": graph_a_band,
+                          "raytrace_full_graph_ms": graph_a,
                           "raytrace_band_max_abs_err": a_band_err,
                           "fxaa_full_device_ms": dev_full,
                           "fps": par_fps, "counts": band_counts,
                           "script_counts": script_counts}
 
-    # --- 9. report ---
+    # --- 9. the fast and oracle paths, the preview and the readback ---
+    from raytracing_cuda_tpu_torch.app.window import Readback
+    from raytracing_cuda_tpu_torch.utils.images import box_downsample
+
+    eng_path = {"oracle": Engine(dataclasses.replace(cfg, path="oracle"),
+                                 DEVICE)}
+    eng_path["fast"] = Engine(dataclasses.replace(cfg, path="fast"), DEVICE,
+                              share_assets_from=eng_path["oracle"])
+    path_stats, path_ms = {}, {}
+    for name, kw in CASES.items():
+        st = make_state(**kw)
+        eng.set_state(st)
+        kernel_img = eng.frame_np()
+        gold = load_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
+        for path, e in eng_path.items():
+            e.set_state(st)
+            img = e.frame_np()
+            require(img.shape == (H, W, 3) and img.dtype == np.uint8,
+                    f"{name}: {path} frame shape {img.shape} {img.dtype}")
+            vs_gold, vs_kernel = (golden_stats(img, gold),
+                                  golden_stats(img, kernel_img))
+            path_stats[f"{path}_{name}"] = {"golden": vs_gold,
+                                            "kernel_path": vs_kernel}
+            require(all(rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC
+                        for rm, off in (vs_gold, vs_kernel)),
+                    f"{name}: Engine(path={path}) vs golden rmse "
+                    f"{vs_gold[0]:.5f} off>2 {vs_gold[1]:.4%}; vs the "
+                    f"megakernel path rmse {vs_kernel[0]:.5f} off>2 "
+                    f"{vs_kernel[1]:.4%}")
+    classic_cfg = dataclasses.replace(cfg, scene="classic",
+                                      procedural_sky_shape=(1024, 2048))
+    classic_frames = {}
+    for path in ("auto", "oracle", "fast"):
+        e = Engine(dataclasses.replace(classic_cfg, path=path), DEVICE)
+        e.set_state(classic_st)
+        classic_frames[path] = e.frame_np()
+        del e
+    for path in ("oracle", "fast"):
+        rm, off = golden_stats(classic_frames[path], classic_frames["auto"])
+        path_stats[f"{path}_classic"] = {"kernel_path": (rm, off)}
+        require(rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC,
+                f"classic: Engine(path={path}) vs the megakernel path rmse "
+                f"{rm:.5f} off>2 {off:.4%}")
+    torch.cuda.empty_cache()
+
+    # frame times of both paths (the frame of island_morning, FXAA on)
+    for path, e in eng_path.items():
+        e.set_state(make_state(6.0))
+        path_ms[path] = cuda_ms(e.frame, 3)
+    print(f"Engine.frame() 1280x720 island_morning: path oracle "
+          f"{path_ms['oracle']:.4f} ms (chunk {cfg.chunk}), path fast "
+          f"{path_ms['fast']:.4f} ms (chunk {cfg.chunk}, a host decision "
+          f"per early exit) (CUDA events) [{card}]", flush=True)
+
+    # fast: chunk size never changes a pixel
+    st = make_state(**CASES["mountains_day"])
+    chunked, chunks = [], (16384, 65536)
+    for chunk in chunks:
+        e = Engine(dataclasses.replace(cfg, path="fast", chunk=chunk), DEVICE,
+                   share_assets_from=eng_path["fast"])
+        e.set_state(st)
+        chunked.append(e.frame())
+        path_ms[f"fast_chunk{chunk}"] = cuda_ms(e.frame, 3)
+    require(torch.equal(*chunked), f"Engine(path=fast) at chunks {chunks}: "
+            f"frames equal bit for bit")
+    print("Engine(path=fast).frame() 1280x720 mountains_day: "
+          + ", ".join(f"chunk {c} {path_ms[f'fast_chunk{c}']:.4f} ms"
+                      for c in chunks) + f" (CUDA events) [{card}]",
+          flush=True)
+
+    # a row-sharded fast Engine against the unsharded one
+    eng_fast_sh = Engine(dataclasses.replace(cfg, path="fast"), DEVICE,
+                         sharded=[DEVICE] * 4,
+                         share_assets_from=eng_path["fast"])
+    mismatch = []
+    for name, kw in CASES.items():
+        st = make_state(**kw)
+        eng_path["fast"].set_state(st)
+        eng_fast_sh.set_state(st)
+        if not torch.equal(eng_fast_sh.frame(), eng_path["fast"].frame()):
+            mismatch.append(name)
+    require(not mismatch, f"Engine(path=fast, sharded=[cuda:0] * 4) equals "
+            f"the unsharded Engine bit for bit; mismatches {mismatch}")
+
+    # sky_cache=False: blend + pack per frame against the static stack
+    eng_one_shot = Engine(dataclasses.replace(cfg, sky_cache=False), DEVICE,
+                          share_assets_from=eng_path["fast"])
+    mismatch = []
+    for name, kw in [*CASES.items(), ("crossfade", dict(day=9.5))]:
+        st = make_state(**kw)
+        eng.set_state(st)
+        eng_one_shot.set_state(st)
+        if not torch.equal(eng_one_shot.frame(), eng.frame()):
+            mismatch.append(name)
+    require(not mismatch, f"Engine(sky_cache=False) equals the default "
+            f"Engine's frame bit for bit; mismatches {mismatch}")
+    del eng_one_shot, eng_fast_sh, chunked
+
+    # the CLI on these paths, and the window where pygame is absent
+    with tempfile.TemporaryDirectory() as tmp:
+        sky_flags = ["--sky-shape", f"{SKY_SHAPE[1]}x{SKY_SHAPE[0]}"]
+        for path, e in eng_path.items():
+            flags = ["--size", f"{W}x{H}", "--path", path, "--day", "14",
+                     "--cam", "1", *sky_flags]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["render", f"{tmp}/{path}.png", *flags])
+            e.set_state(cli.build_state(cli._parser().parse_args(
+                ["render", *flags]), make_state(6.0)))
+            require(rc == 0 and np.array_equal(load_png(f"{tmp}/{path}.png"),
+                                               e.frame_np()),
+                    f"cli render --path {path} equals the Engine(path="
+                    f"{path}) frame of the same state")
+        if importlib.util.find_spec("pygame") is None:
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rc = cli.main(["window", "--size", f"{W}x{H}"])
+            except SystemExit as e:
+                rc = e.code
+            require(rc not in (0, None) and "pygame" in err.getvalue(),
+                    f"cli window without pygame exits {rc} naming it")
+        else:
+            print("pygame is installed here: cli window's refusal without "
+                  "it is not checked", flush=True)
+
+    # the viewer's frame without a display: the preview downsample on the
+    # device, then the loop through the readback ring; these are this
+    # phase's main path, so the counters are read around them
+    eng_pre = {p: Engine(dataclasses.replace(cfg, preview=p), DEVICE,
+                         share_assets_from=eng) for p in (2, 4)}
+    for p, e in eng_pre.items():
+        st = make_state(**CASES["island_night"])
+        e.set_state(st)
+        eng.set_state(st)
+        reset_counts()
+        small = e.step_and_frame_preview()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 1,
+                f"step_and_frame_preview (preview {p}) launched kernel A "
+                f"and kernel B once each: {counts}")
+        require(small.shape == (H // p, W // p, 3)
+                and np.array_equal(small.cpu().numpy(),
+                                   box_downsample(eng.step_and_frame(), p)),
+                f"step_and_frame_preview (preview {p}) equals "
+                f"box_downsample of the full frame bit for bit")
+
+    def ring_loop(e, step, keep: bool, n=30):
+        """n frames of the window's loop body without pygame: render,
+        submit to the ring, take the previous frame's host copy and copy
+        it out (the viewer blits it). keep=True keeps every frame rendered
+        (on the card) and every frame handed back, to compare them;
+        keep=False keeps none, as the viewer, and is the loop to time.
+        → (rendered, shown, host ms per frame: in all, and of that in the
+        render call, in submit (copy enqueued, previous copy awaited) and
+        in the copy out)."""
+        ring, rendered, shown, blit = Readback(), [], [], None
+        e.set_state(make_state(6.0))
+        torch.cuda.synchronize()
+        t_step = t_submit = t_blit = 0.0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ta = time.perf_counter()
+            frame = step()
+            tb = time.perf_counter()
+            host = ring.submit(frame)
+            tc = time.perf_counter()
+            if keep:
+                rendered.append(frame)
+                if host is not None:
+                    shown.append(host.clone())
+            elif host is not None:
+                blit = host.clone() if blit is None else blit.copy_(host)
+            t_step, t_submit, t_blit = (t_step + tb - ta, t_submit + tc - tb,
+                                        t_blit + time.perf_counter() - tc)
+        last = ring.flush()        # waits for the last frame's copy
+        if keep:
+            shown.append(last.clone())
+        total = time.perf_counter() - t0
+        return rendered, shown, [round(t * 1e3 / n, 4)
+                                 for t in (total, t_step, t_submit, t_blit)]
+
+    reset_counts()
+    rendered, shown, _ = ring_loop(eng, eng.step_and_frame, keep=True)
+    ring_counts = read_counts()
+    require(len(shown) == 30 and all(
+        torch.equal(s, r.cpu()) for s, r in zip(shown, rendered)),
+        "the readback ring hands back each of 30 loop frames unchanged, one "
+        "iteration late")
+    require(ring_counts["raytrace_megakernel"] == 30
+            and ring_counts["fxaa"] == 30,
+            f"the window's loop launched kernel A and kernel B once per "
+            f"frame: {ring_counts}")
+    _, shown4, _ = ring_loop(eng_pre[4], eng_pre[4].step_and_frame_preview,
+                             keep=True)
+    require(all(torch.equal(s, torch.from_numpy(box_downsample(r.cpu(), 4)))
+                for s, r in zip(shown4, rendered)),
+            "the ring's preview-4 frames equal box_downsample of the "
+            "full-size loop frames")
+    del rendered, shown, shown4
+    loop_ms = {"ring": [], "ring_preview4": [], "run": []}
+    for _ in range(2):               # in turns: the host's rate drifts
+        loop_ms["ring"].append(
+            ring_loop(eng, eng.step_and_frame, keep=False)[2])
+        eng.set_state(make_state(6.0))
+        loop_ms["run"].append(1e3 / eng.run(30).fps)
+        loop_ms["ring_preview4"].append(ring_loop(
+            eng_pre[4], eng_pre[4].step_and_frame_preview, keep=False)[2])
+    print(f"window loop without a display, 30 frames 1280x720 island, host "
+          f"ms per frame [in all, render call, ring submit, copy out], two "
+          f"turns each: through the readback ring {loop_ms['ring']} (2.76 "
+          f"MB per frame to pinned memory), at preview 4 "
+          f"{loop_ms['ring_preview4']}, beside Engine.run(30) "
+          f"{loop_ms['run']} in all with no readback [{card}]", flush=True)
+    report["paths"] = {"stats": path_stats, "frame_ms": path_ms,
+                       "loop_ms": loop_ms, "ring_counts": ring_counts}
+
+    # --- 10. report ---
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",

@@ -15,6 +15,13 @@ splits it (scene.cpp:806-816, kernel.cu:406-462):
 launch of each kernel (render/pipeline.py `batch_packs` /
 `frames_from_packs`); `run(batch=K)` and the CLI's `record` drive it.
 
+config.path "fast" and "oracle" render with the plain PyTorch raytracers
+instead (render/fast.py, render/reference.py) from the sky blended per
+frame, and config.sky_cache=False renders the megakernel path through the
+one-shot `render_frame`; a batch is then a loop of single frames, as the
+JAX package scans them (loop.py:219-230). `step_and_frame_preview` renders
+at full size and box-downsamples on the device for the window's readback.
+
 The device is always explicit: Engine(config, device="cuda") runs the CUDA
 kernels, device="cpu" their plain PyTorch versions. Engine(...,
 sharded=True) renders every frame in row bands over all devices of that
@@ -32,16 +39,19 @@ from typing import Callable
 import numpy as np
 import torch
 
+from raytracing_cuda_tpu_torch.core.math3d import true_div
 from raytracing_cuda_tpu_torch.core.types import Camera
 from raytracing_cuda_tpu_torch.parallel import frames as pframes
 from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
                                                      band_rows, devices,
-                                                     make_mesh, render_bands)
+                                                     make_mesh, render_bands,
+                                                     render_bands_plain)
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
 from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
                                                        frames_from_packs,
                                                        host_packs,
-                                                       pack_actions)
+                                                       pack_actions,
+                                                       render_frame)
 from raytracing_cuda_tpu_torch.scene.builders import (CLASSIC_CAMERA,
                                                       SPH_CLUSTERS,
                                                       TRI_CLUSTERS, TRI_SUBS,
@@ -54,9 +64,40 @@ from raytracing_cuda_tpu_torch.utils.timing import (FrameStats, FrameTimer,
                                                     device_sync)
 
 
+def _box_downsample(img: torch.Tensor, n: int) -> torch.Tensor:
+    """(H, W, 3) uint8 → (H/n, W/n, 3) uint8 box mean on the device of
+    `img` (the preview readback): the device twin of
+    utils.images.box_downsample, float32 mean, + 0.5, truncate. The n x n
+    sum of 8-bit values is exact in float32, and it is divided truly (a
+    CUDA mean multiplies by a rounded 1/n²), so host and device agree bit
+    for bit."""
+    if n == 1:
+        return img
+    H, W = img.shape[0], img.shape[1]
+    boxes = img.to(torch.float32).reshape(H // n, n, W // n, n, 3)
+    return (true_div(boxes.sum(dim=(1, 3)), float(n * n)) + 0.5).to(
+        torch.uint8)
+
+
+def initial_state(config: RenderConfig) -> sim.FrameState:
+    """The state an Engine of `config` starts from: the reference's
+    globals with the config's FXAA toggle, at the classic scene's camera
+    pose where that scene is chosen, settled."""
+    state = sim.init_state()._replace(
+        aa=torch.tensor(bool(config.antialiasing)))
+    if config.scene == "classic":
+        cc = CLASSIC_CAMERA
+        state = state._replace(cam=Camera(
+            pos=torch.tensor(cc["pos"], dtype=torch.float32),
+            hor_angle=torch.tensor(cc["hor_angle"], dtype=torch.float32),
+            ver_angle=torch.tensor(cc["ver_angle"], dtype=torch.float32),
+            fov=torch.tensor(cc["fov"], dtype=torch.float32)))
+    return sim.settle(state)
+
+
 class Engine:
-    """Scene + static sky stack + frame state, rendering on one device or,
-    sharded, in row bands over several."""
+    """Scene + sky + frame state, rendering on one device or, sharded, in
+    row bands over several."""
 
     def __init__(self, config: RenderConfig, device, sharded=False,
                  share_assets_from: "Engine | None" = None):
@@ -69,31 +110,41 @@ class Engine:
         self.device = as_device(self.device)
         self.sharded = sharded
         self.mesh = self._row_mesh(sharded)
+        self.path = config.path
+        # what the path reads of the sky: the megakernel path looks up the
+        # static int32 stack (always when sharded, as the JAX package);
+        # 'fast', 'oracle' and sky_cache=False blend the uint8 texels per
+        # frame. Only what is read goes to the device.
+        static = self.path == "auto" and (config.sky_cache
+                                          or self.mesh is not None)
         src = share_assets_from
         if src is not None:
             # the resize path (main.cpp:293-306): same scene, sky and state
             if (src.device, src.config.scene, src.config.sky_source,
-                    src.config.procedural_sky_shape) != (
+                    src.config.procedural_sky_shape,
+                    src.sky_pack is not None) != (
                     self.device, config.scene, config.sky_source,
-                    config.procedural_sky_shape):
+                    config.procedural_sky_shape, static):
                 raise ValueError("share_assets_from needs the same device, "
-                                 "scene and sky")
+                                 "scene, sky and sky form")
             self.scene, self.state = src.scene, src.state
-            self.sky_pack, self.sky_h, self.sky_w = (src.sky_pack, src.sky_h,
-                                                     src.sky_w)
+            self.sky_pack, self.sky_texels = src.sky_pack, src.sky_texels
+            self.sky_h, self.sky_w = src.sky_h, src.sky_w
         else:
             self.scene = build_named_scene(config.scene)
             texels = load_skies(config.sky_source,
                                 config.procedural_sky_shape).texels
             self.sky_h, self.sky_w = texels.shape[1:3]
-            self.sky_pack = pack_sky_all(
-                torch.from_numpy(texels).to(self.device))
-            self.state = self._initial_state()
+            texels = torch.from_numpy(texels).to(self.device)
+            self.sky_pack = pack_sky_all(texels) if static else None
+            self.sky_texels = None if static else texels
+            self.state = initial_state(config)
         # the static sky stack on each device that renders, copied to a
         # device once, at its first use
         self._sky_packs = dict(getattr(src, "_sky_packs", {}))
-        self._sky_packs[self.sky_pack.device] = self.sky_pack
-        self._sky_packs_for(self.mesh or [])
+        if static:
+            self._sky_packs[self.sky_pack.device] = self.sky_pack
+            self._sky_packs_for(self.mesh or [])
         self.tri_clusters = TRI_CLUSTERS.get(config.scene)
         self.sph_clusters = SPH_CLUSTERS.get(config.scene)
         self.tri_subs = TRI_SUBS.get(config.scene)
@@ -137,18 +188,6 @@ class Engine:
             if d not in self._sky_packs:
                 self._sky_packs[d] = self.sky_pack.to(d)
         return self._sky_packs
-
-    def _initial_state(self) -> sim.FrameState:
-        c = self.config
-        state = sim.init_state()._replace(aa=torch.tensor(bool(c.antialiasing)))
-        if c.scene == "classic":
-            cc = CLASSIC_CAMERA
-            state = state._replace(cam=Camera(
-                pos=torch.tensor(cc["pos"], dtype=torch.float32),
-                hor_angle=torch.tensor(cc["hor_angle"], dtype=torch.float32),
-                ver_angle=torch.tensor(cc["ver_angle"], dtype=torch.float32),
-                fov=torch.tensor(cc["fov"], dtype=torch.float32)))
-        return sim.settle(state)
 
     # --- state ---
 
@@ -233,8 +272,27 @@ class Engine:
                             interleave=c.shard_interleave,
                             cull=self._cull_on_device(cull)).to(self.device)
 
+    def _frame_blended(self) -> torch.Tensor:
+        """The current state's frame from the sky blended per frame: the
+        'fast' and 'oracle' paths (in row bands when sharded) and the
+        one-shot megakernel frame of sky_cache=False."""
+        c = self.config
+        if self.mesh is not None:
+            return render_bands_plain(
+                self.scene, self.state, self.sky_texels, mesh=self.mesh,
+                height=c.height, width=c.width, chunk=c.chunk,
+                aspect=c.aspect, aa=bool(self.state.aa),
+                interleave=c.shard_interleave).to(self.device)
+        return render_frame(self.scene, self.state, self.sky_texels, c.height,
+                            c.width, chunk=c.chunk, aspect=c.aspect,
+                            path=self.path, tri_clusters=self.tri_clusters,
+                            sph_clusters=self.sph_clusters,
+                            t_subs=self.tri_subs)
+
     def frame(self) -> torch.Tensor:
         """Render the current state → (H, W, 3) uint8 on the engine device."""
+        if self.sky_pack is None:
+            return self._frame_blended()
         c = self.config
         coef, params, n_tri, n_sph, cull = self._packs()
         if self.mesh is not None:
@@ -252,14 +310,32 @@ class Engine:
         self.step(action, dt)
         return self.frame()
 
+    def step_and_frame_preview(self, action: Action | None = None,
+                               dt: float = 1 / 60) -> torch.Tensor:
+        """Step, render at full size, box-downsample on the device →
+        (H/p, W/p, 3) uint8 on the engine device (p = config.preview): a
+        full-size render with a small readback."""
+        return _box_downsample(self.step_and_frame(action, dt),
+                               self.config.preview)
+
     def step_and_frame_batch(self, actions, dts=None) -> torch.Tensor:
         """Step and render K frames → (K, H, W, 3) uint8 on the engine
-        device, each kernel launched once for the batch. actions: a list of
-        Actions (dts per frame, default 1/60 each) or packed (K, 16)
-        vectors carrying their own dt. Frame k equals the k-th of K
-        step_and_frame calls."""
+        device, each kernel launched once for the batch (frame by frame
+        where the sky is blended per frame). actions: a list of Actions
+        (dts per frame, default 1/60 each) or packed (K, 16) vectors
+        carrying their own dt. Frame k equals the k-th of K step_and_frame
+        calls."""
         if isinstance(actions, (list, tuple)) and dts is None:
             dts = [1 / 60] * len(actions)
+        if self.sky_pack is None:
+            imgs = []
+            for av in pack_actions(actions, dts):
+                self.state = sim.animate(self.state, Action.unpack(av),
+                                         Action.unpack_dt(av))
+                imgs.append(self.frame())
+            if not imgs:
+                raise ValueError("a batch needs at least one frame")
+            return torch.stack(imgs)
         c = self.config
         coefs, params, n_tri, n_sph, cull, states = batch_packs(
             self.scene, self.state, pack_actions(actions, dts), c.height,
@@ -294,6 +370,10 @@ class Engine:
             raise ValueError("frame DP and row sharding are alternative "
                              "layouts; build the Engine with sharded=False "
                              "(n_rows>1 composes them on a 2-D mesh)")
+        if self.sky_pack is None:
+            raise ValueError("render_script_dp needs the megakernel "
+                             "static-sky path (config path='auto', "
+                             "sky_cache=True)")
         if isinstance(action_vecs, (list, tuple)):
             action_vecs = pack_actions(action_vecs, [dt] * len(action_vecs))
         c = self.config

@@ -67,6 +67,16 @@ def dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def cross3(a, b):
+    """float3 cross (structs.h:64-66) along the last axis of torch tensors,
+    broadcasting the leading axes; each product and difference rounded on
+    its own."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], -1)
+
+
 def normalize(v):
     """float3 normalize (structs.h:82-84): v * (1/norm)."""
     if _is_np(v):

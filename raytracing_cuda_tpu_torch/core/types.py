@@ -87,6 +87,12 @@ class Scene(NamedTuple):
         return self.tri_v0.shape[0]
 
 
+def to_device(fields, device):
+    """A NamedTuple of tensors (Scene, Lights, CameraRays) with every field
+    on `device`."""
+    return type(fields)(*(v.to(device) for v in fields))
+
+
 class SkyTextures(NamedTuple):
     """Equirectangular panoramas morning/day/evening/night, (4, H, W, 3) uint8."""
 

@@ -18,6 +18,12 @@ bottom, which pass through FXAA), and kernel B's band form filters the
 chunk, judging borders by global row. Every pixel equals the single-device
 frame bit for bit, the JAX package's contract (mesh.py:192-194).
 
+A band of a `fast` or `oracle` frame runs no megakernel: its chunk is
+`render_base_image_fast` at the chunk's row offset, from the sky blended
+once per frame, and then the same halo exchange and kernel B. The JAX
+package renders the fast renderer in bands for `path="oracle"` too
+(mesh.py:115-118), and so does this port.
+
 The JAX package's grouped sky resolve, and with it the band alignment rule
 of `_resolve_grouped`, is left behind: the port's sky lookup is per pixel.
 """
@@ -26,11 +32,15 @@ from __future__ import annotations
 
 import torch
 
-from raytracing_cuda_tpu_torch.core.types import Scene
+from raytracing_cuda_tpu_torch.core.types import Scene, to_device
+from raytracing_cuda_tpu_torch.render.fast import render_base_image_fast
 from raytracing_cuda_tpu_torch.render.fxaa import fxaa_batch, fxaa_ext
-from raytracing_cuda_tpu_torch.render.pipeline import (bases_from_packs,
+from raytracing_cuda_tpu_torch.render.pipeline import (PLAIN_RENDERERS,
+                                                       bases_from_packs,
                                                        host_packs)
-from raytracing_cuda_tpu_torch.sim.state import FrameState
+from raytracing_cuda_tpu_torch.scene.textures import blend_sky
+from raytracing_cuda_tpu_torch.sim.state import (FrameState, camera_rays,
+                                                 derive_frame)
 
 
 def as_device(d) -> torch.device:
@@ -133,12 +143,19 @@ def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
             coefs_d, params_d, n_tri_rows, n_sph_rows, sky_packs[dev], sky_h,
             sky_w, states, sub, width, row0=c * sub, total_h=height,
             cull=cull_d))
-    if not any(aa):
-        return torch.cat([b.to(mesh[0]) for b in bases], dim=1)
+    return filter_bands(bases, aa, mesh[0], sub, height)
 
-    # halo exchange by global chunk index, then FXAA on each chunk (a whole
-    # frame, with no halo rows, where there is one chunk); a frame whose
-    # toggle is off keeps its base rows (mesh.py:155-159)
+
+def filter_bands(bases, aa, device, sub: int, height: int) -> torch.Tensor:
+    """Row chunks of K frames ((K, sub, width, 3) uint8 each, on their
+    devices, in frame order) → the K filtered frames (K, height, width, 3)
+    on `device`: the halo exchange by global chunk index, then FXAA on
+    each chunk (a whole frame, with no halo rows, where there is one
+    chunk); a frame whose aa[k] is off keeps its base rows
+    (mesh.py:155-159)."""
+    chunks = len(bases)
+    if not any(aa):
+        return torch.cat([b.to(device) for b in bases], dim=1)
     outs = []
     for c, base in enumerate(bases):
         dev = base.device
@@ -155,8 +172,41 @@ def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
         for k, on in enumerate(aa):
             if not on:
                 out[k] = base[k]
-        outs.append(out.to(mesh[0], non_blocking=True))
+        outs.append(out.to(device, non_blocking=True))
     return torch.cat(outs, dim=1)
+
+
+def render_bands_plain(scene: Scene, state: FrameState,
+                       sky_texels: torch.Tensor, *, mesh, height: int,
+                       width: int, chunk: int = 32768,
+                       aspect: float | None = None, aa: bool = True,
+                       interleave: int = 1) -> torch.Tensor:
+    """One frame of the `fast` and `oracle` paths in row bands over mesh →
+    (height, width, 3) uint8 on mesh[0]: the sky blended once on the device
+    of `sky_texels` and copied to each device of mesh, chunk c rendered by
+    render_base_image_fast at row offset c * rows on mesh[c % n], then
+    filter_bands. The non-kernel branch of band_shard_fn
+    (mesh.py:115-118)."""
+    mesh = as_mesh(mesh)
+    n = len(mesh)
+    sub = band_rows(height, n, interleave)
+    if aspect is None:
+        aspect = width / height
+    scene_f, lights, ambient = derive_frame(scene, state)
+    rays = camera_rays(state.cam, aspect)
+    blended = replicate(blend_sky(sky_texels, state.sky_vars), mesh)
+    day_frac = state.day_time / 24.0
+    frame = {d: (to_device(scene_f, d), to_device(lights, d), ambient.to(d),
+                 to_device(rays, d)) for d in blended}
+    bases = []
+    for c in range(n * interleave):
+        dev = mesh[c % n]
+        scene_d, lights_d, ambient_d, rays_d = frame[dev]
+        bases.append(render_base_image_fast(
+            scene_d, lights_d, ambient_d, blended[dev], day_frac, rays_d,
+            sub, width, row0=c * sub, total_height=height,
+            chunk=chunk)[None])
+    return filter_bands(bases, [aa], mesh[0], sub, height)[0]
 
 
 def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
@@ -164,20 +214,34 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
                          width: int, aspect: float | None = None,
                          fxaa_static: bool | None = None, interleave: int = 1,
                          tri_clusters=None, sph_clusters=None,
-                         t_subs=None) -> torch.Tensor:
+                         t_subs=None, path: str = "auto", sky_texels=None,
+                         chunk: int = 32768) -> torch.Tensor:
     """Row-sharded render of one frame → (height, width, 3) uint8 on
-    mesh[0], equal bit for bit to render_frame_static_sky.
+    mesh[0], equal bit for bit to the single-device frame of `path`.
 
-    sky_packs maps each device of mesh to its copy of the static (4, H*W)
-    sky stack (replicate). fxaa_static overrides the state's FXAA toggle.
-    interleave = k > 1 gives each device k strided chunks instead of one
-    contiguous band (mesh.py:200-209)."""
+    path "auto" (the megakernel): sky_packs maps each device of mesh to its
+    copy of the static (4, H*W) sky stack (replicate), and the frame equals
+    render_frame_static_sky's. Paths "fast" and "oracle" blend the
+    panoramas per frame from sky_texels ((4, H, W, 3) uint8 on one device)
+    like render_frame and read neither sky_packs nor the cluster
+    arguments; both render the fast renderer in their bands.
+    fxaa_static overrides the state's FXAA toggle. interleave = k > 1 gives
+    each device k strided chunks instead of one contiguous band
+    (mesh.py:200-209)."""
     mesh = as_mesh(mesh)
     band_rows(height, len(mesh), interleave)
+    aa = bool(state.aa) if fxaa_static is None else bool(fxaa_static)
+    if path in PLAIN_RENDERERS:
+        return render_bands_plain(scene, state, sky_texels, mesh=mesh,
+                                  height=height, width=width, chunk=chunk,
+                                  aspect=aspect, aa=aa,
+                                  interleave=interleave)
+    if path != "auto":
+        raise ValueError(f"path must be 'auto', 'fast' or 'oracle', got "
+                         f"{path!r}")
     coef, params, nt, ns, cull = host_packs(scene, state, height, width,
                                             aspect, tri_clusters,
                                             sph_clusters, t_subs)
-    aa = bool(state.aa) if fxaa_static is None else bool(fxaa_static)
     return render_bands(coef[None], params[None], nt, ns, [state], sky_packs,
                         sky_h, sky_w, mesh=mesh, height=height, width=width,
                         interleave=interleave, aa=[aa], cull=cull)[0]

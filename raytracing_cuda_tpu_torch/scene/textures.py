@@ -1,5 +1,6 @@
-"""Sky panoramas: procedural generation, packing and the flat pair lookup
-(port of the flat part of raytracing_cuda_tpu/scene/textures.py).
+"""Sky panoramas: procedural generation, the per-frame blend, packing and
+the flat lookups (port of the flat part of
+raytracing_cuda_tpu/scene/textures.py).
 
 The reference binds four equirectangular panoramas (morning/day/evening/
 night, scene.cpp:626-632) as point-sampled CUDA textures and blends all four
@@ -10,6 +11,12 @@ stack and each miss ray fetches at most two texels and blends them with the
 same truncation. On a GPU the per-pixel gather is exact and cheap, so the
 JAX package's grouped resolve (one gather per pixel group, a TPU gather
 workaround) has no counterpart here.
+
+The `fast` and `oracle` render paths, and the kernel path without the
+static stack, blend the four panoramas once per frame into one uint8
+texture instead (`blend_sky`, bit-identical to blending per ray because the
+weights are uniform across the frame) and pay one gather per sky ray
+(`sample_sky`, `sample_sky_packed`).
 """
 
 from __future__ import annotations
@@ -74,6 +81,23 @@ def load_skies(source: str = "procedural",
     return SkyTextures(texels=procedural_skies(*procedural_shape))
 
 
+def blend_sky(texels: torch.Tensor, sky_vars) -> torch.Tensor:
+    """Pre-blend the four panoramas (4, H, W, 3) uint8 with the frame's
+    skyVars → (H, W, 3) uint8 on the device of `texels`.
+
+    The reference's per-ray blend (kernel.cu:158-162): each texel scaled in
+    float32 and truncated to uchar (structs.h:86-88), then summed (the
+    weights sum to 1, so no uchar overflow). sky_vars: the host weights.
+    """
+    sv = np.asarray(sky_vars, np.float32)
+    acc = torch.zeros(texels.shape[1:], dtype=torch.uint8,
+                      device=texels.device)
+    for i in range(4):
+        acc = acc + (texels[i].to(torch.float32) * float(sv[i])).to(
+            torch.uint8)
+    return acc
+
+
 def pack_sky(blended: torch.Tensor) -> torch.Tensor:
     """(H, W, 3) uint8 → flat (H*W,) int32 of r | g << 8 | b << 16."""
     b32 = blended.to(torch.int32)
@@ -111,6 +135,34 @@ def _equirect_indices(h: int, w: int, d: torch.Tensor, day_frac: float):
     return iy, ix
 
 
+def sample_sky(blended: torch.Tensor, d: torch.Tensor, day_frac):
+    """Equirectangular sky lookup (kernel.cu:156-163) on a blend_sky
+    texture → (..., 3) f32 in [0,1].
+
+    y from asin(dir.y); x from atan2(dir.x, dir.z) shifted by the day
+    fraction so the sky rotates with the clock; point sampling with clamp
+    addressing like the reference's CUDA texture setup (kernel.cu:429-436).
+    day_frac is the host float32 day_time / 24.
+    """
+    h, w = blended.shape[0], blended.shape[1]
+    iy, ix = _equirect_indices(h, w, d, float(np.float32(day_frac)))
+    texel = blended.reshape(-1, 3)[(iy * w + ix).to(torch.int64)]
+    return texel.to(torch.float32) * _INV_255
+
+
+def _unpack_rgb(texel: torch.Tensor) -> torch.Tensor:
+    return torch.stack([texel & 0xFF, (texel >> 8) & 0xFF,
+                        (texel >> 16) & 0xFF], dim=-1).to(torch.float32)
+
+
+def sample_sky_packed(packed: torch.Tensor, h: int, w: int, d: torch.Tensor,
+                      day_frac):
+    """Equirect lookup (kernel.cu:156-163) on a pack_sky plane → (..., 3)
+    f32 in [0,1]; day_frac as in sample_sky."""
+    iy, ix = _equirect_indices(h, w, d, float(np.float32(day_frac)))
+    return _unpack_rgb(packed[(iy * w + ix).to(torch.int64)]) * _INV_255
+
+
 def sample_sky_packed_pair(packed_all: torch.Tensor, h: int, w: int,
                            d: torch.Tensor, day_frac, sky_vars):
     """Flat equirect lookup on a pack_sky_all stack → (..., 3) f32 in [0,1].
@@ -128,8 +180,7 @@ def sample_sky_packed_pair(packed_all: torch.Tensor, h: int, w: int,
              + torch.floor(((tb >> s) & 0xFF).to(torch.float32) * float(wb))
              for s in (0, 8, 16)], dim=-1)
     else:
-        rgb = torch.stack([ta & 0xFF, (ta >> 8) & 0xFF, (ta >> 16) & 0xFF],
-                          dim=-1).to(torch.float32)
+        rgb = _unpack_rgb(ta)
     return rgb * _INV_255
 
 

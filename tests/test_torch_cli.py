@@ -172,7 +172,9 @@ def test_box_downsample_semantics():
 
 
 @pytest.mark.parametrize("argv", [
-    ["window"], ["bench", "--path", "fast"], ["render", "--path", "oracle"],
+    ["window", "--ssaa", "2"], ["render", "--path", "cuda", "--device", "cpu"],
+    ["render", "--device", "gpu0"], ["render", "--device", "-1"],
+    ["record", "--dp", "2", "--path", "fast", "--device", "cpu"],
     ["record", "--dp", "-2"], ["record", "--dp-rows", "-2"],
     ["render", "--dp", "2"], ["bench", "--dp-rows", "2"],
     ["render", "--ssaa", "0"], ["bench", "--ssaa", "2"],
@@ -192,7 +194,8 @@ def test_usage_errors(argv, tmp_path):
 def test_cuda_path_needs_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the refusal cannot be checked")
-    for path in (["--path", "cuda"], []):
+    for path in (["--path", "cuda"], [], ["--path", "fast"],
+                 ["--path", "oracle", "--device", "0"]):
         with pytest.raises(SystemExit, match="CUDA"):
             main(["render", str(tmp_path / "x.png"), *SMALL, *path])
     assert not (tmp_path / "x.png").exists()
@@ -245,3 +248,111 @@ def test_bench_prints_its_stats(capsys):
     assert main(["bench", "--frames", "2", *SMALL, "--path", "plain"]) == 0
     stats = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["frames"] == 2 and stats["fps"] > 0
+
+
+def path_engine(path) -> Engine:
+    """The Engine main() builds for SMALL --path fast|oracle --device cpu."""
+    return Engine(RenderConfig(width=160, height=96, sky_source="auto",
+                               path=path, procedural_sky_shape=(64, 128)),
+                  "cpu")
+
+
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+def test_render_on_plain_paths(tmp_path, path):
+    """render --path fast|oracle --device cpu writes that path's Engine
+    frame."""
+    flags = ["--day", "18", "--cam", "1", *SMALL, "--path", path, "--device",
+             "cpu"]
+    out = str(tmp_path / f"{path}.png")
+    assert main(["render", out, *flags]) == 0
+    eng = path_engine(path)
+    eng.set_state(cli.build_state(cli._parser().parse_args(
+        ["render", *flags]), eng.state))
+    assert np.array_equal(load_png(out), eng.frame_np())
+
+
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+def test_bench_on_plain_paths(capsys, path):
+    assert main(["bench", "--frames", "2", *SMALL, "--path", path,
+                 "--device", "cpu"]) == 0
+    stats = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["frames"] == 2 and stats["fps"] > 0
+
+
+def test_record_on_the_fast_path(tmp_path):
+    """record renders its batches frame by frame on these paths and writes
+    the scripted step_and_frame frames."""
+    out = str(tmp_path / "frames")
+    assert main(["record", out, "--frames", "3", *SMALL, "--path", "fast",
+                 "--device", "cpu"]) == 0
+    eng = path_engine("fast")
+    for i in range(3):
+        img = eng.step_and_frame(scripted_action(i), RECORD_DT).numpy()
+        assert np.array_equal(load_png(os.path.join(out, f"{i:04d}.png")),
+                              img), i
+
+
+def test_device_cpu_is_the_plain_path(tmp_path):
+    """--device cpu on the default path runs the kernels' plain versions,
+    as --path plain does."""
+    flags = ["--day", "14", *SMALL]
+    assert main(["render", str(tmp_path / "a.png"), *flags, "--device",
+                 "cpu"]) == 0
+    assert main(["render", str(tmp_path / "b.png"), *flags, "--path", "plain",
+                 "--device", "cpu"]) == 0
+    assert np.array_equal(load_png(str(tmp_path / "a.png")),
+                          load_png(str(tmp_path / "b.png")))
+
+
+def test_cli_preview_is_window_only():
+    """--preview reaches RenderConfig for the window command only: it is a
+    window-loop knob, and forwarded for render/record/bench the config's
+    divisibility check would refuse runs that never read it."""
+    flags = ["--preview", "3", "--path", "plain"]  # 720 % 3 == 0, 1280 % 3 != 0
+    for command in ("render", "record", "bench"):
+        assert cli._config(cli._parser().parse_args(
+            [command, *flags])).preview == 1
+    with pytest.raises(ValueError, match="preview"):
+        cli._config(cli._parser().parse_args(["window", *flags]))
+    with pytest.raises(SystemExit) as e:
+        main(["window", *flags])
+    assert e.value.code not in (0, None)
+    cfg = cli._config(cli._parser().parse_args(
+        ["window", "--preview", "4", "--path", "oracle"]))
+    assert (cfg.preview, cfg.path) == (4, "oracle")
+
+
+def test_window_command_runs_the_viewer(tmp_path, monkeypatch):
+    """window builds its config, device and start state and hands them to
+    run_window; bounded to 2 frames with SDL_VIDEODRIVER=dummy."""
+    pytest.importorskip("pygame")
+    from raytracing_cuda_tpu_torch.app import window as win
+
+    monkeypatch.setenv("SDL_VIDEODRIVER", "dummy")
+    monkeypatch.chdir(tmp_path)
+    seen = {}
+    orig = win.run_window
+
+    def bounded(config, device, **kw):
+        seen.update(config=config, device=device, **kw)
+        seen["frames"] = orig(config, device, max_frames=2, **kw)
+
+    monkeypatch.setattr(win, "run_window", bounded)
+    assert main(["window", "--size", "64x48", "--sky-shape", "32x16",
+                 "--preview", "2", "--day", "14", "--scene", "classic",
+                 "--device", "cpu"]) == 0
+    assert seen["frames"] == 2 and seen["device"] == "cpu"
+    assert (seen["config"].preview, seen["config"].path) == (2, "auto")
+    st = seen["initial_state"]
+    assert float(st.day_time) == 14.0
+    # the classic scene keeps its own camera pose under --day
+    assert torch.equal(st.cam.pos, loop_mod.initial_state(
+        seen["config"]).cam.pos)
+
+
+def test_window_needs_pygame(monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "pygame", None)
+    with pytest.raises(SystemExit) as e:
+        main(["window", "--device", "cpu"])
+    assert e.value.code not in (0, None)
+    assert "pygame" in capsys.readouterr().err

@@ -329,3 +329,88 @@ def test_render_script_dp_and_hybrid_match_sequence(dev):
         imgs = eng.render_script_dp(acts, dt=0.05, **kw)
         assert torch.equal(imgs, seq), kw
         assert states_equal(eng.state, end)
+
+
+# --- the `fast` and `oracle` paths, the preview and the readback ---
+
+
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+@pytest.mark.parametrize("name", ["island_morning", "evening_flood_noaa"])
+def test_plain_paths_on_the_card_match_cpu(dev, name, path):
+    """Plain PyTorch ops on the card against the same ops on the CPU: the
+    golden contract (other asin/atan2/pow implementations)."""
+    st = make_state(**CASES[name])
+    frames = []
+    for device in ("cuda", "cpu"):
+        eng = small_engine(device, path=path, chunk=4096)
+        eng.set_state(st)
+        frames.append(eng.frame_np())
+    rmse, off = golden_stats(*frames)
+    assert rmse < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC, (rmse, off)
+
+
+def test_fast_chunks_and_bands_exact_on_the_card(dev):
+    eng = small_engine("cuda", path="fast", chunk=4096)
+    st = make_state(**CASES["mountains_day"])
+    eng.set_state(st)
+    ref = eng.frame()
+    for chunk in (1024, H * W):
+        other = small_engine("cuda", path="fast", chunk=chunk)
+        other.set_state(st)
+        assert torch.equal(other.frame(), ref), chunk
+    sharded = small_engine("cuda", sharded=["cuda:0"] * 4, path="fast",
+                           chunk=4096)
+    sharded.set_state(st)
+    before = fxaa.fxaa_ext.launches
+    assert torch.equal(sharded.frame(), ref)
+    assert fxaa.fxaa_ext.launches == before + 4
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sky_cache_off_equals_static_stack_on_the_card(dev, name):
+    eng, one_shot = small_engine("cuda"), small_engine("cuda",
+                                                       sky_cache=False)
+    st = make_state(**CASES[name])
+    eng.set_state(st)
+    one_shot.set_state(st)
+    assert torch.equal(one_shot.frame(), eng.frame())
+
+
+@pytest.mark.parametrize("preview", [2, 4, 8])
+def test_preview_launches_each_kernel_once(dev, preview):
+    from raytracing_cuda_tpu_torch.utils.images import box_downsample
+
+    eng = small_engine("cuda", preview=preview)
+    full = small_engine("cuda")
+    st = make_state(**CASES["island_night"])
+    eng.set_state(st)
+    full.set_state(st)
+    before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches)
+    small = eng.step_and_frame_preview()
+    torch.cuda.synchronize()
+    assert (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert small.is_cuda and small.shape == (H // preview, W // preview, 3)
+    assert np.array_equal(small.cpu().numpy(),
+                          box_downsample(full.step_and_frame(), preview))
+
+
+def test_readback_returns_each_frame_one_late(dev):
+    from raytracing_cuda_tpu_torch.app.window import Readback
+
+    eng = small_engine("cuda")
+    ring, want, got = Readback(), [], []
+    for i in range(6):
+        frame = eng.step_and_frame()
+        want.append(frame.clone())
+        host = ring.submit(frame)
+        if host is not None:
+            assert host.device.type == "cpu" and host.is_pinned()
+            got.append(host.clone())
+    got.append(ring.flush().clone())
+    assert len(got) == 6
+    assert all(torch.equal(g, w.cpu()) for g, w in zip(got, want))
+    big = eng.resized(2 * W, 2 * H)       # a resize: buffers allocated anew
+    ring.flush()
+    assert ring.submit(big.frame()) is None
+    assert ring.flush().shape == (2 * H, 2 * W, 3)
