@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
   2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu) with nvcc, in
      parallel; ptxas must report no spills;
   3. each kernel against its plain PyTorch version on the card at
-     1280x720, bit for bit, for the four golden states, the worst pose and
-     the classic scene, with times; kernel A's counting launch and its
-     lane-efficiency line;
+     1280x720, bit for bit, for the four golden states, the worst pose, the
+     seven degenerate states (EXTREME) and the classic scene, with times;
+     kernel A at a size whose warp tiles hang over the frame's edges
+     (ODD_SIZE), one frame and 3 frames per launch; kernel A's counting
+     launch and its lane-efficiency line;
   4. the slice: Engine(device="cuda") renders the four golden states
      against tests/golden/tpu/*.png, then runs the idle animated loop;
      both kernels' launch counters must have moved in this phase;
@@ -38,7 +40,23 @@ Phases (any failure exits non-zero):
      display: step_and_frame_preview against the box downsample of the full
      frame, and 30 frames through the readback ring, with both kernels'
      launch counters read around them;
- 10. a JSON line per kernel form (each with its bound, from this run's
+ 10. other sizes: Engine(device="cuda") at 1920x1080 against the four
+     goldens in tests/golden/tpu/1920x1080/ under the golden contract, and
+     at 640x480 (mountains, FXAA off: bench_torch.py's configuration 1)
+     against the CPU Engine's frame under the same contract; at each size
+     both kernels against their plain versions bit for bit (at 1080p for
+     every golden state), then the device times of kernel A and kernel B
+     (CUDA graph replay) and of the sky stage between them (CUDA events);
+     both kernels bit for bit at the shapes phase 11's scripts hand them:
+     entry()'s 144x256 frame, dryrun_multichip(8)'s 128x128 frames whole
+     and in bands of 16 and 8 rows, one and two frames per launch;
+ 11. the root scripts, in-process on the card: bench_torch.main at 1280x720
+     with 60 frames and every configuration (its JSON line is printed, and
+     its parity gate must pass), __torch_entry__.dryrun_multichip(8) on
+     eight entries of the card and entry(), the worst-state probe over a
+     3 x 4 sub-grid, one soak segment of 120 frames; the kernels' launch
+     counters are read around each;
+ 12. a JSON line per kernel form (each with its bound, from this run's
      inputs), the card line, and the final status line.
 """
 
@@ -61,26 +79,34 @@ import time
 import numpy as np
 import torch
 
+import bench_torch
+from bench_torch import CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE
+from raytracing_cuda_tpu_torch.utils.timing import graph_device_ms
+
 DEVICE = "cuda"
 H, W = 720, 1280
 SKY_SHAPE = (2048, 4096)
 BATCH = 8              # the K of run(batch=8) and of the CLI's record
-GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "tests", "golden", "tpu")
-# golden states of tests/test_golden.py:39-44
-CASES = {
-    "island_morning": dict(day=6.0),
-    "mountains_day": dict(day=14.0, cp=1),
-    "island_night": dict(day=1.0),
-    "evening_flood_noaa": dict(day=18.0, sea=2.0, aa=False),
+GOLDEN_DIR = bench_torch.GOLDEN_ROOT
+# POSES: the golden states (bench_torch.CASES), the worst pose (day 17.6,
+# yaw 315, bench.py:796-800, where the most geometry and sea reflections
+# fill the frame and near-horizontal shadow rays sweep the mountain ring)
+# and the degenerate states of tests/test_properties.py:28-36, where the sea
+# plane's t that seeds kernel A's per-ray bound is extreme or always
+# missing: the camera inside the island, below the sea and far away (yaw
+# 120, fov 40), the clock at both ends, the sea above and below everything
+EXTREME = {
+    "camera_inside_island": dict(pos=[0.0, -1.0, 0.0], ver=44.0),
+    "camera_below_sea": dict(pos=[0.0, -50.0, 0.0], ver=-44.0),
+    "camera_very_far": dict(pos=[5000.0, 800.0, -4000.0], ver=-30.0),
+    "day_wraparound": dict(day=24.0),
+    "day_zero": dict(day=0.0),
+    "sea_above_everything": dict(sea=500.0),
+    "sea_far_below": dict(sea=-500.0),
 }
-# the goldens and the worst pose: day 17.6, yaw 315 (bench.py:796-800),
-# where the most geometry and sea reflections fill the frame and
-# near-horizontal shadow rays sweep the mountain ring
-POSES = dict(CASES, worst_pose=dict(day=17.6, yaw=315.0))
-# golden contract (tests/test_golden.py:82-86)
-GOLDEN_RMSE = 2e-3
-GOLDEN_OFF_FRAC = 0.003
+POSES = dict(CASES, worst_pose=dict(day=17.6, yaw=315.0), **EXTREME)
+# a size whose last warp tiles (8 x 4 pixels) hang over both frame edges
+ODD_SIZE = (37, 53)
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes/s and float32 operations/s outside the tensor cores.
@@ -103,14 +129,22 @@ A_OPS_SHADED, A_OPS_SHADOW, A_OPS_SHADOW_TRI, A_OPS_SHADOW_SPH = (
 B_OPS_PIXEL, B_OPS_EDGE = 19, 62
 
 
-def make_state(day, cp=None, sea=None, aa=True, yaw=None):
+def make_state(day=None, cp=None, sea=None, aa=True, yaw=None, pos=None,
+               ver=0.0):
     """tests/test_golden.py make_state on the port's state machine; yaw
-    turns the camera as bench.py preset_state does."""
+    turns the camera as bench.py preset_state does; pos and ver place it
+    as tests/test_properties.py _extreme_state does (yaw 120, fov 40)."""
+    from raytracing_cuda_tpu_torch.core.types import Camera
     from raytracing_cuda_tpu_torch.sim import state as sim
     from raytracing_cuda_tpu_torch.sim.actions import Action
 
-    s = sim.init_state()._replace(day_time=torch.tensor(day,
-                                                        dtype=torch.float32))
+    t = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    s = sim.init_state()
+    if pos is not None:
+        s = s._replace(cam=Camera(pos=t(pos), hor_angle=t(120.0),
+                                  ver_angle=t(ver), fov=t(40.0)))
+    if day is not None:
+        s = s._replace(day_time=t(day))
     if cp is not None:
         s = sim.apply_controls(
             s, Action.idle()._replace(cam_preset=np.int32(cp)), 0.0)
@@ -345,22 +379,6 @@ def profiled(fn, reps: int, knames):
     return None
 
 
-def graph_device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of fn() from CUDA events around the
-    replay of a CUDA graph of reps calls, which the card runs back to back
-    without waiting on the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    return cuda_ms(graph.replay, 5) / reps
-
-
 def kernel_device_ms(fn, reps: int, kname: str) -> float:
     """Device milliseconds per launch of the kernel named kname over reps
     calls of fn(), from a torch.profiler trace (CUDA events around
@@ -399,6 +417,12 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--out", default=None, help="write a JSON report here")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    def phase(n: int):
+        """Say where the run's time goes: seconds in when phase n starts."""
+        print(f"phase {n} starts {time.perf_counter() - t_start:.1f} s in",
+              flush=True)
 
     # --- 1. environment ---
     if not torch.cuda.is_available():
@@ -430,6 +454,7 @@ def main() -> int:
               "cuda": torch.version.cuda}
 
     # --- 2. build, one nvcc per source, started together ---
+    phase(2)
     from concurrent.futures import ThreadPoolExecutor
 
     print(_build.nvcc_version(), flush=True)
@@ -449,6 +474,7 @@ def main() -> int:
                 f"ptxas reports no spills for {name} ({spills})")
 
     # --- 3. kernels vs plain versions on the card, bit for bit ---
+    phase(3)
     scene = build_scene()
     sky_np = procedural_skies(*SKY_SHAPE)
     sky_pack = pack_sky_all(torch.from_numpy(sky_np).to(dev))
@@ -496,6 +522,31 @@ def main() -> int:
         inputs[name] = (coef, params, nt, ns, cu, bk, kern, base_of)
         if work is not None:
             works[name] = work
+
+    # kernel A where the last warp tiles hang over the right and bottom
+    # edges: one frame per launch, and 3 frames per launch
+    oh, ow = ODD_SIZE
+    odd = [host_packs(scene, make_state(**POSES[n]), oh, ow, None, *clusters)
+           for n in ("island_morning", "mountains_day",
+                     "sea_above_everything")]
+    odd_coefs = torch.stack([p[0] for p in odd]).to(dev)
+    odd_params = torch.stack([p[1] for p in odd]).to(dev)
+    odd_cull = odd[0][4].to(dev)
+    odd_plain = cuda_rt.raytrace_planes_batch_torch(
+        odd_coefs, odd_params, oh, ow, *odd[0][2:4])
+    odd_k3 = cuda_rt.raytrace_planes_batch(odd_coefs, odd_params, oh, ow,
+                                           *odd[0][2:4], cull=odd_cull)
+    odd_k1 = cuda_rt.raytrace_planes(odd_coefs[0], odd_params[0], oh, ow,
+                                     *odd[0][2:4], cull=odd_cull)
+    torch.cuda.synchronize()
+    odd_err = max([float((a - b).abs().max())
+                   for a, b in zip(odd_k3, odd_plain)]
+                  + [float((a - b[0]).abs().max())
+                     for a, b in zip(odd_k1, odd_plain)])
+    a_err = max(a_err, odd_err)
+    require(odd_err == 0.0 and all(p.shape == (3, oh, ow) for p in odd_k3),
+            f"kernel A vs plain at {oh}x{ow} (partial warp tiles), K=1 and "
+            f"K=3: max|diff| {odd_err}")
 
     coef, params, nt, ns, cull, bk, kern, base_of = inputs["island_morning"]
     ms_a_pose = {name: cuda_ms(lambda i=inputs[name]: cuda_rt.raytrace_planes(
@@ -569,6 +620,7 @@ def main() -> int:
                               "fxaa": ms_b}
 
     # --- 4. the slice through Engine on the card ---
+    phase(4)
     eng = Engine(RenderConfig(width=W, height=H, scene="island",
                               sky_source="procedural",
                               procedural_sky_shape=SKY_SHAPE), device=DEVICE)
@@ -603,6 +655,7 @@ def main() -> int:
                   golden_rmse_max=worst)
 
     # --- 5. the batch path ---
+    phase(5)
     from raytracing_cuda_tpu_torch.scene.textures import (
         sample_sky_packed_pair_batch)
 
@@ -714,6 +767,7 @@ def main() -> int:
                          "kernel_a_k8_ms": ms_a8, "fxaa_k8_ms": ms_b8})
 
     # --- 6. the CLI, in-process ---
+    phase(6)
     from raytracing_cuda_tpu_torch import __main__ as cli
     from raytracing_cuda_tpu_torch.utils.checkpoint import save_state
 
@@ -786,6 +840,7 @@ def main() -> int:
         report["cli_bench"] = bench
 
     # --- 7. profile 30 loop frames ---
+    phase(7)
     eng.set_state(make_state(6.0))
     for _ in range(5):
         eng.step_and_frame()
@@ -817,6 +872,7 @@ def main() -> int:
                          "top": top[:5]}
 
     # --- 8. parallel/: row bands, frame DP, the hybrid ---
+    phase(8)
     from raytracing_cuda_tpu_torch.parallel.mesh import (
         render_frame_sharded, replicate)
 
@@ -998,6 +1054,7 @@ def main() -> int:
                           "script_counts": script_counts}
 
     # --- 9. the fast and oracle paths, the preview and the readback ---
+    phase(9)
     from raytracing_cuda_tpu_torch.app.window import Readback
     from raytracing_cuda_tpu_torch.utils.images import box_downsample
 
@@ -1042,10 +1099,11 @@ def main() -> int:
                 f"{rm:.5f} off>2 {off:.4%}")
     torch.cuda.empty_cache()
 
-    # frame times of both paths (the frame of island_morning, FXAA on)
+    # frame times of both paths (the frame of island_morning, FXAA on):
+    # one frame each after the warm-up one, as a frame takes 0.2-1.3 s
     for path, e in eng_path.items():
         e.set_state(make_state(6.0))
-        path_ms[path] = cuda_ms(e.frame, 3)
+        path_ms[path] = cuda_ms(e.frame, 1)
     print(f"Engine.frame() 1280x720 island_morning: path oracle "
           f"{path_ms['oracle']:.4f} ms (chunk {cfg.chunk}), path fast "
           f"{path_ms['fast']:.4f} ms (chunk {cfg.chunk}, a host decision "
@@ -1059,7 +1117,7 @@ def main() -> int:
                    share_assets_from=eng_path["fast"])
         e.set_state(st)
         chunked.append(e.frame())
-        path_ms[f"fast_chunk{chunk}"] = cuda_ms(e.frame, 3)
+        path_ms[f"fast_chunk{chunk}"] = cuda_ms(e.frame, 1)
     require(torch.equal(*chunked), f"Engine(path=fast) at chunks {chunks}: "
             f"frames equal bit for bit")
     print("Engine(path=fast).frame() 1280x720 mountains_day: "
@@ -1215,7 +1273,250 @@ def main() -> int:
     report["paths"] = {"stats": path_stats, "frame_ms": path_ms,
                        "loop_ms": loop_ms, "ring_counts": ring_counts}
 
-    # --- 10. report ---
+    # --- 10. other sizes: 1920x1080 against its goldens, 640x480 ---
+    phase(10)
+
+    def base_from(planes, st):
+        """Kernel A's planes of state st → the (..., 3) uint8 frame before
+        FXAA (the sky lookup and quantize, torch ops)."""
+        r, g, b, mw, mdx, mdy, mdz = planes
+        sk = sample_sky_packed_pair(
+            eng.sky_pack, *SKY_SHAPE, torch.stack([mdx, mdy, mdz], -1),
+            st.day_time / 24.0, st.sky_vars)
+        return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sk)
+
+    def held_frame(label, h, w, st):
+        """Both kernels' full-frame wrappers against their plain versions,
+        bit for bit, on the h x w frame of state st → (kernel A's launch,
+        its planes, the frame before FXAA)."""
+        coef_h, params_h, nt_, ns_, cull_h = host_packs(scene, st, h, w,
+                                                        None, *clusters)
+        coef_d, params_d, cull_d = (t.to(dev) for t in (coef_h, params_h,
+                                                        cull_h))
+
+        def run_a():
+            return cuda_rt.raytrace_planes(coef_d, params_d, h, w, nt_, ns_,
+                                           cull=cull_d)
+
+        planes = run_a()
+        plain = cuda_rt.raytrace_planes_torch(coef_d, params_d, h, w, nt_,
+                                              ns_)
+        base = base_from(planes, st)
+        a_ok = all(torch.equal(a, b) for a, b in zip(planes, plain))
+        b_ok = torch.equal(fx.fxaa(base), fx.fxaa_torch(base))
+        require(a_ok and b_ok, f"{label}: kernel A and kernel B at {w}x{h} "
+                f"equal their plain versions bit for bit (A {a_ok}, B "
+                f"{b_ok})")
+        return run_a, planes, base
+
+    def held_bands(label, h, w, states, n):
+        """The launches parallel/ makes for K = len(states) frames of h x w:
+        both kernels' K-frame forms on whole frames, then on each of n row
+        bands (kernel A at row0 of total_h, kernel B with its halo rows),
+        against their plain versions bit for bit; the bands assembled must
+        equal the whole-frame launches."""
+        packs = [host_packs(scene, st, h, w, None, *clusters)
+                 for st in states]
+        coefs = torch.stack([p[0] for p in packs]).to(dev)
+        params_ = torch.stack([p[1] for p in packs]).to(dev)
+        nt_, ns_, cull_d = packs[0][2], packs[0][3], packs[0][4].to(dev)
+        full = cuda_rt.raytrace_planes_batch(coefs, params_, h, w, nt_, ns_,
+                                             cull=cull_d)
+        a_ok = all(torch.equal(a, b) for a, b in zip(
+            full, cuda_rt.raytrace_planes_batch_torch(coefs, params_, h, w,
+                                                      nt_, ns_)))
+        bases = torch.stack([base_from([p[k] for p in full], st)
+                             for k, st in enumerate(states)])
+        whole = fx.fxaa_batch(bases)
+        b_ok = torch.equal(whole, fx.fxaa_batch_torch(bases))
+        sub = h // n
+        exts = [list(halo_bands(b, n)) for b in bases]
+        for c in range(n):
+            r0 = c * sub
+            kb = cuda_rt.raytrace_planes_batch(
+                coefs, params_, sub, w, nt_, ns_, row0=r0, total_h=h,
+                cull=cull_d)
+            pb = cuda_rt.raytrace_planes_batch_torch(
+                coefs, params_, sub, w, nt_, ns_, row0=r0, total_h=h)
+            a_ok &= all(torch.equal(a, b) and torch.equal(
+                a, f[:, r0:r0 + sub]) for a, b, f in zip(kb, pb, full))
+            ext = torch.stack([e[c][1] for e in exts])
+            out = fx.fxaa_ext(ext, r0, h)
+            b_ok &= (torch.equal(out, fx.fxaa_ext_torch(ext, r0, h))
+                     and torch.equal(out, whole[:, r0:r0 + sub]))
+        require(a_ok and b_ok, f"{label}: K={len(states)} frames of {w}x{h} "
+                f"and their {n} bands of {sub} rows: kernel A and kernel B "
+                f"equal their plain versions and the whole-frame launches "
+                f"bit for bit (A {a_ok}, B {b_ok})")
+
+    def stage_ms(h, w, st):
+        """held_frame on the h x w frame of state st, then the device ms of
+        kernel A (CUDA graph replay), of the sky lookup + quantize between
+        the kernels (CUDA events: torch ops, which read the state's host
+        scalars) and of kernel B (graph replay)."""
+        run_a, planes, base = held_frame(f"{w}x{h}", h, w, st)
+        return {"raytrace": graph_device_ms(run_a, 20),
+                "sky_quantize": cuda_ms(lambda: base_from(planes, st), 50),
+                "fxaa": graph_device_ms(lambda: fx.fxaa(base), 50)}
+
+    eng_1080 = eng.resized(1920, 1080)
+    sizes = {}
+    reset_counts()
+    for name, kw in CASES.items():
+        eng_1080.set_state(make_state(**kw))
+        img = eng_1080.frame_np()
+        require(img.shape == (1080, 1920, 3) and img.dtype == np.uint8,
+                f"{name}: 1080p frame shape {img.shape} {img.dtype}")
+        rm, off = golden_stats(img, load_png(os.path.join(
+            GOLDEN_DIR, "1920x1080", f"{name}.png")))
+        sizes[f"golden_1080p_{name}"] = {"rmse": rm, "off_frac": off}
+        require(rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC,
+                f"{name}: 1920x1080 Engine frame vs golden rmse {rm:.5f} "
+                f"off>2 {off:.4%}")
+    counts = read_counts()
+    require(counts["raytrace_megakernel"] == 4 and counts["fxaa"] == 3,
+            f"the 1080p frames launched kernel A 4 times and kernel B 3 "
+            f"times (one state has FXAA off): {counts}")
+    for name, kw in CASES.items():
+        if name != "island_morning":        # that one: stage_ms below
+            held_frame(name, 1080, 1920, make_state(**kw))
+    sizes["1920x1080"] = stage_ms(1080, 1920, make_state(**CASES[
+        "island_morning"]))
+    eng_1080.set_state(make_state(6.0))
+    st1080 = eng_1080.run(60)
+    ms = sorted(st1080.frame_ms)
+    print(f"1920x1080 island_morning device ms: kernel A "
+          f"{sizes['1920x1080']['raytrace']:.4f} (CUDA graph replay), sky + "
+          f"quantize {sizes['1920x1080']['sky_quantize']:.4f} (CUDA "
+          f"events), kernel B {sizes['1920x1080']['fxaa']:.4f} (graph "
+          f"replay); Engine.run(60) {st1080.fps:.2f} fps, frame ms median "
+          f"{ms[len(ms) // 2]:.4f} [{card}]", flush=True)
+    del eng_1080
+
+    st480 = bench_torch.preset_state(day=14.0, cam_preset=1, aa=False)
+    eng_480 = eng.resized(640, 480)
+    eng_480.set_state(st480)
+    reset_counts()
+    img = eng_480.frame_np()
+    counts = read_counts()
+    require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 0,
+            f"the 640x480 frame (FXAA off) launched kernel A once and "
+            f"kernel B never: {counts}")
+    eng_cpu = Engine(RenderConfig(width=640, height=480,
+                                  procedural_sky_shape=SKY_SHAPE),
+                     device="cpu")
+    eng_cpu.set_state(st480)
+    rm, off = golden_stats(img, eng_cpu.frame_np())
+    del eng_cpu, eng_480
+    sizes["640x480_vs_cpu"] = {"rmse": rm, "off_frac": off}
+    require(img.shape == (480, 640, 3) and rm < GOLDEN_RMSE
+            and off < GOLDEN_OFF_FRAC,
+            f"640x480 mountains, FXAA off: Engine frame on the card vs the "
+            f"CPU Engine's rmse {rm:.5f} off>2 {off:.4%}")
+    sizes["640x480"] = stage_ms(480, 640, st480)
+    print(f"640x480 mountains (day 14, camera preset 1) device ms: kernel A "
+          f"{sizes['640x480']['raytrace']:.4f} (CUDA graph replay), sky + "
+          f"quantize {sizes['640x480']['sky_quantize']:.4f} (CUDA events), "
+          f"kernel B {sizes['640x480']['fxaa']:.4f} (graph replay; the "
+          f"state has FXAA off, so its frames do not launch it) [{card}]",
+          flush=True)
+
+    # the shapes the root scripts of phase 11 hand the kernels:
+    # __torch_entry__.entry()'s 144x256 frame, and dryrun_multichip(8)'s
+    # 128x128 frames whole (frame DP), in 8 bands of 16 rows (the sharded
+    # frame, and the hybrid's 2 frames per launch) and in 16 of 8 rows
+    # (interleave=2)
+    st_e = sim.settle(sim.init_state())
+    held_frame("entry()", 144, 256, st_e)
+    step = Action.idle()._replace(move_forward=np.int32(1),
+                                  mouse_dx=np.float32(1.0))
+    st_d = [sim.animate(st_e, step, 1 / 60)]
+    st_d.append(sim.animate(st_d[0], step, 1 / 60))
+    held_bands("dryrun_multichip(8)", 128, 128, st_d[:1], 8)
+    held_bands("dryrun_multichip(8), hybrid", 128, 128, st_d, 8)
+    held_bands("dryrun_multichip(8), interleave=2", 128, 128, st_d[:1], 16)
+    report["sizes"] = sizes
+
+    # --- 11. the root scripts, in-process on the card ---
+    phase(11)
+    import __torch_entry__ as torch_entry
+    from experiments import soak_torch, worst_state_probe_torch
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = bench_torch.main(["--size", f"{W}x{H}", "--frames", "60"])
+    counts = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    require(len(lines) == 1, f"bench_torch prints one line on stdout "
+            f"({len(lines)})")
+    print(lines[0], flush=True)
+    bench = json.loads(lines[0])
+    require(rc == 0 and bench.get("parity_ok") is True
+            and bench["parity_rmse_max"] < GOLDEN_RMSE,
+            f"bench_torch.main at {W}x{H}, 60 frames, every configuration: "
+            f"exit {rc}, parity_ok {bench.get('parity_ok')}, worst rmse "
+            f"{bench.get('parity_rmse_max')}")
+    require({"metric", "value", "unit", "vs_baseline", "crossfade_fps",
+             "parity_rmse_max", "parity_ok"} <= set(bench)
+            and bench["value"] > 0 and bench["crossfade_fps"] > 0,
+            f"bench_torch's line has bench.py's keys: {sorted(bench)}")
+    require(counts["raytrace_megakernel"] > 400 and counts["fxaa"] > 300,
+            f"bench_torch's configurations went through both kernels: "
+            f"{counts}")
+    report["bench_torch"] = bench
+
+    reset_counts()
+    torch_entry.dryrun_multichip(8, DEVICE)
+    counts = read_counts()
+    require(counts["fxaa_band"] > 0 and counts["raytrace_megakernel_k8"] > 0
+            and counts["raytrace_megakernel"] > 0,
+            f"dryrun_multichip(8) on eight entries of the card launched "
+            f"kernel A (frame and band launches) and kernel B's band form: "
+            f"{counts}")
+    frames = {}
+    for d in (DEVICE, "cpu"):
+        fn, fn_args = torch_entry.entry(d)
+        frames[d] = fn(*fn_args).cpu().numpy()
+    rm, off = golden_stats(frames[DEVICE], frames["cpu"])
+    print(f"entry: ok {frames[DEVICE].shape} {frames[DEVICE].dtype}",
+          flush=True)
+    require(frames[DEVICE].shape == (144, 256, 3) and rm < GOLDEN_RMSE
+            and off < GOLDEN_OFF_FRAC,
+            f"entry() on the card vs on the CPU: rmse {rm:.5f} off>2 "
+            f"{off:.4%}")
+
+    reset_counts()
+    worst_ms, worst_pose, readings = worst_state_probe_torch.probe(
+        eng, days=(14.0, 17.6, 1.0), yaws=(45, 135, 225, 315),
+        out=lambda line: print(line, flush=True))
+    counts = read_counts()
+    print(f"worst-state probe, 3 x 4 sub-grid at {W}x{H}: kernel A "
+          f"{worst_ms:.4f} ms of device time at day {worst_pose[0]} yaw "
+          f"{worst_pose[1]} (each pose: kernel A device ms by CUDA graph "
+          f"replay / host-clock frame ms) [{card}]", flush=True)
+    require(len(readings) == 12 and all(k > 0 and f > 0
+                                        for k, f in readings.values())
+            and counts["raytrace_megakernel"] >= 12 * 9,
+            f"the probe read 12 poses through kernel A: {counts}")
+    report["probe"] = {"worst_ms": worst_ms, "worst_pose": worst_pose,
+                       "readings": {f"{d}_{y}": v
+                                    for (d, y), v in readings.items()}}
+
+    reset_counts()
+    soak = soak_torch.soak(eng, 1, 120, 12.0,
+                           out=lambda line: print(line, flush=True))
+    counts = read_counts()
+    require(len(soak) == 1 and soak[0]["fps"] > 0
+            and soak[0]["device_peak_bytes"] > 0
+            and counts["raytrace_megakernel"] >= 120,
+            f"one soak segment of 120 frames: {soak[0]['fps']:.2f} fps, "
+            f"device peak {soak[0]['device_peak_bytes'] / 1e6:.1f} MB, host "
+            f"RSS {soak[0]['rss_gb']:.2f} GB [{card}]")
+    report["soak"] = soak
+
+    # --- 12. report ---
+    phase(12)
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
@@ -1263,6 +1564,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
+    print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

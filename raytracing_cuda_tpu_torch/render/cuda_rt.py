@@ -332,6 +332,16 @@ def _dot(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
+def _mul_add(a, b, c):
+    """a * b + c with the product rounded before the sum, as
+    csrc/raytrace.cu computes it (built with -fmad=false). The frustum lerp
+    and the hit points go through here: XLA's CPU code contracts these two
+    into fused multiply-adds, which sends a few rays of a frame elsewhere
+    where a hit turns on the last bit (tests/test_torch_properties.py swaps
+    a fused version in to show it)."""
+    return a * b + c
+
+
 def _ch(C, c):
     """Channel c of the row table as a (1, R) row for (n, R) broadcasting."""
     return C[None, :, c]
@@ -517,7 +527,8 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
             v[sel] for v in (lox, loy, loz, ldx, ldy, ldz, lthr))
         (colr, colg, colb, shine, spec_e, kr, flags,
          nvx, nvy, nvz) = attrs[sel].unbind(1)
-        hx, hy, hz = lox + ldx * t, loy + ldy * t, loz + ldz * t
+        hx, hy, hz = (_mul_add(ldx, t, lox), _mul_add(ldy, t, loy),
+                      _mul_add(ldz, t, loz))
         em = flags >= 2.0
         is_sph = (flags - 2.0 * em.to(f32)) > 0
         snx, sny, snz = _norm3(hx - nvx, hy - nvy, hz - nvz)
@@ -598,9 +609,24 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
     out[4:7, sl] = mdir
 
 
+def check_frame(H: int, W: int, row0: int, total_h: int) -> None:
+    """Refuse a band the pixel-to-ray map is not defined for. A pixel's
+    frustum coordinates are col / (W - 1) and row / (total_h - 1)
+    (kernel.cu:244-253), so a frame one pixel wide or one row high has
+    none: the JAX package divides by zero there (pallas_rt.py:643-644
+    raises ZeroDivisionError). On every device."""
+    if W < 2 or total_h < 2:
+        raise ValueError(f"a frame needs at least 2 x 2 pixels to place its "
+                         f"rays, got {W} wide and {total_h} high")
+    if H < 1 or row0 < 0:
+        raise ValueError(f"a band needs at least one row at row0 >= 0, got "
+                         f"{H} rows at row0 {row0}")
+
+
 def primary_rays(params, H: int, W: int, row0: int = 0, total_h=None):
     """Frustum-corner lerp (kernel.cu:244-253) → unit directions, 3 x (H*W)."""
     total_h = H if total_h is None else total_h
+    check_frame(H, W, row0, total_h)
     dev = params.device
     P = params
     px = (torch.arange(W, device=dev, dtype=f32)
@@ -609,9 +635,9 @@ def primary_rays(params, H: int, W: int, row0: int = 0, total_h=None):
           * float(np.float32(1.0 / (total_h - 1))))[:, None]
     dirs = []
     for k in range(3):
-        vd = P[P_LD + k] + (P[P_RD + k] - P[P_LD + k]) * px
-        vu = P[P_LU + k] + (P[P_RU + k] - P[P_LU + k]) * px
-        dirs.append(vu - (vu - vd) * py)
+        vd = _mul_add(P[P_RD + k] - P[P_LD + k], px, P[P_LD + k])
+        vu = _mul_add(P[P_RU + k] - P[P_LU + k], px, P[P_LU + k])
+        dirs.append(_mul_add(-(vu - vd), py, vu))
     return tuple(v.reshape(-1) for v in _norm3(*dirs))
 
 
@@ -681,6 +707,7 @@ def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h, cull,
     its COUNT_KEYS tallies there."""
     from raytracing_cuda_tpu_torch import _build
 
+    check_frame(H, W, row0, total_h)
     for name, t in (("coefs", coefs), ("params", params)):
         if t.dtype != f32 or not t.is_contiguous() or t.device != coefs.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on "

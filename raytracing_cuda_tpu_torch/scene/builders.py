@@ -333,8 +333,9 @@ CLASSIC_CAMERA = dict(pos=(0.0, 7.0, 42.0), hor_angle=270.0,
 # (builders.py:379-404 of the JAX package): triangles = island box, six
 # trees, six mountain pairs; spheres = snowman A, snowman B, igloo (all
 # shadow-casting), then the emissive sun/moon proxies. They fix the padded
-# row layout of the packed scene; the culls that use them on the TPU are
-# not ported yet.
+# row layout of the packed scene and the groups of the megakernel's
+# per-ray culls (render/cuda_rt.py cull_groups, cluster_bounds), one bound
+# per triangle cluster, or ISLAND_TRI_SUBS[k] equal sub-bounds of cluster k.
 ISLAND_TRI_CLUSTERS = (10, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8)
 ISLAND_SPH_CLUSTERS = ((8, True), (8, True), (8, True), (2, False))
 ISLAND_TRI_SUBS = (1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 2)

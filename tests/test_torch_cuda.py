@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASES, GOLDEN_OFF_FRAC, GOLDEN_RMSE, POSES,
+from chip_smoke import (CASES, EXTREME, GOLDEN_OFF_FRAC, GOLDEN_RMSE, POSES,
                         golden_stats, halo_bands, make_state, states_equal,
                         varied_actions)
 from raytracing_cuda_tpu_torch import __main__ as cli
@@ -64,16 +64,21 @@ def _scene_state(name):
     return tb.build_scene(), make_state(**POSES[name]), ISLAND
 
 
-def _packs(name, dev):
-    """(coef, params, n_tri_rows, n_sph_rows, cull table) on dev."""
+def _packs(name, dev, h=H, w=W):
+    """(coef, params, n_tri_rows, n_sph_rows, cull table) on dev, for a
+    frame of h x w."""
     scene, st, clusters = _scene_state(name)
-    coef, params, nt, ns, cull = host_packs(scene, st, H, W, None,
+    coef, params, nt, ns, cull = host_packs(scene, st, h, w, None,
                                             *clusters)
     return coef.to(dev), params.to(dev), nt, ns, cull.to(dev)
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose", "classic"])
+@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose", "classic"]
+                         + sorted(EXTREME))
 def test_raytrace_kernel_matches_plain(dev, name):
+    """The four golden states, the worst pose, the classic scene, and the
+    seven degenerate states where the sea plane's t that seeds the per-ray
+    cull bound is extreme or always missing."""
     coef, params, nt, ns, cull = _packs(name, dev)
     before = cuda_rt.raytrace_planes.launches
     kern = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns,
@@ -92,6 +97,46 @@ def test_raytrace_kernel_row_band(dev):
     band = torch.stack(cuda_rt.raytrace_planes(coef, params, 32, W, nt, ns,
                                                row0=40, total_h=H, cull=cull))
     assert torch.equal(band, full[:, 40:72])
+
+
+# frames and a band whose last 8 x 4 warp tiles hang over the right and
+# bottom edges: (rows, width, row0, rows of the whole frame)
+PARTIAL_TILES = [(37, 53, 0, 37), (2, 2, 0, 2), (5, 9, 0, 5),
+                 (30, 160, 7, 96)]
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("h,w,row0,total_h", PARTIAL_TILES)
+def test_raytrace_kernel_partial_tiles(dev, h, w, row0, total_h, K):
+    """Kernel A masks the lanes of a warp tile that fall outside the frame:
+    every plane of every frame equals the plain version's bit for bit, one
+    frame per launch (K = 1 through raytrace_planes) and K frames per
+    launch."""
+    names = ["island_morning", "mountains_day", "sea_above_everything"][:K]
+    packs = [_packs(name, dev, total_h, w) for name in names]
+    nt, ns, cull = packs[0][2:]
+    coefs = torch.stack([p[0] for p in packs])
+    params = torch.stack([p[1] for p in packs])
+    if K == 1:
+        kern = [p[None] for p in cuda_rt.raytrace_planes(
+            coefs[0], params[0], h, w, nt, ns, row0=row0, total_h=total_h,
+            cull=cull)]
+    else:
+        kern = cuda_rt.raytrace_planes_batch(coefs, params, h, w, nt, ns,
+                                             row0=row0, total_h=total_h,
+                                             cull=cull)
+    torch.cuda.synchronize()
+    plain = cuda_rt.raytrace_planes_batch_torch(coefs, params, h, w, nt, ns,
+                                                row0=row0, total_h=total_h)
+    assert all(k.shape == (K, h, w) for k in kern)
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+
+
+def test_raytrace_wrappers_reject_one_pixel_frames_on_the_card(dev):
+    coef, params, nt, ns, cull = _packs("island_morning", dev)
+    for h, w in ((4, 1), (1, 4)):
+        with pytest.raises(ValueError, match="needs at least"):
+            cuda_rt.raytrace_planes(coef, params, h, w, nt, ns, cull=cull)
 
 
 @pytest.mark.parametrize("name", ["island_morning", "mountains_day",

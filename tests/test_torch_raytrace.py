@@ -214,33 +214,37 @@ def _cull_packs(name):
 
 
 class _Rays(trt._Work):
-    """_Work that also keeps every cast ray (origin, direction) and every
-    shadow ray (origin, direction, light distance, occluded) it is shown."""
+    """_Work that also keeps every cast ray (origin, direction, the sea
+    plane's t) and every shadow ray (origin, direction, light distance,
+    occluded) it is shown."""
 
     cast_rays: list = []
     shadow_rays: list = []
 
     def cast(self, o, d, t_plane):
         super().cast(o, d, t_plane)
-        self.cast_rays.append((o, d))
+        self.cast_rays.append((o, d, t_plane))
 
     def shadow(self, o, d, dist, occ):
         super().shadow(o, d, dist, occ)
         self.shadow_rays.append((o, d, dist, occ))
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose"])
-def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
-    """The kernel's culls on every ray of a real frame, at every level.
+def check_cull_sound(coef, params, nt, ns, groups, table, h, w, monkeypatch):
+    """The kernel's culls on every ray of the h x w frame of these packs,
+    at every level → (cast rays, rays whose winner is a row, occluded
+    shadow rays whose occluder is a row).
+
     A cast ray's winning row lies under a bound that `reach` passes with
     t_hi = the winning t (the kernel's t_hi, the plane's hit shrunk to the
     best hit so far, is never smaller); an occluded shadow ray that the sea
     plane does not occlude has an occluder under a blocking group's bound
-    that `reach` passes with t_hi = its light distance."""
-    scene, coef, params, nt, ns, groups, table = _cull_packs(name)
+    that `reach` passes with t_hi = its light distance. Every t_hi the
+    kernel starts from (the plane's t, the light's distance) is a number
+    and not negative, so no comparison against it is lost to a NaN."""
     _Rays.cast_rays, _Rays.shadow_rays = [], []
     monkeypatch.setattr(trt, "_Work", _Rays)
-    trt.raytrace_planes_torch(coef, params, H, W, nt, ns,
+    trt.raytrace_planes_torch(coef, params, h, w, nt, ns,
                               work=dict.fromkeys(trt.WORK_KEYS, 0),
                               cull=groups)
     bounds = params[trt.P_CLUSTERS:].reshape(-1, 4)[:len(groups)]
@@ -263,7 +267,8 @@ def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
             trt._sph_t(Cs, *map(col, (*o, *d)))], dim=1)
 
     n_cast = n_hit = 0
-    for o, d in _Rays.cast_rays:
+    for o, d, t_plane in _Rays.cast_rays:
+        assert not torch.isnan(t_plane).any() and (t_plane >= 0).all()
         t = row_t(o, d)
         t_min = t.amin(1)
         key = torch.where(t == col(t_min), gidx[None, :],
@@ -278,6 +283,7 @@ def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
         n_hit += int(hit.sum())
     n_occ = 0
     for o, d, dist, occ in _Rays.shadow_rays:
+        assert not torch.isnan(dist).any() and (dist >= 0).all()
         rows = occ & ~(trt._plane_t(o[1], d[1], sea_y) < dist)
         if not rows.any():
             continue
@@ -289,6 +295,16 @@ def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
         seen = occluder & (under >= 0)[None] & reached[:, under.clamp(min=0)]
         assert seen.any(1).all()
         n_occ += int(rows.sum())
+    return n_cast, n_hit, n_occ
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose"])
+def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
+    """check_cull_sound on the golden states and the worst pose: frames
+    full of row hits and row-occluded shadow rays."""
+    scene, coef, params, nt, ns, groups, table = _cull_packs(name)
+    n_cast, n_hit, n_occ = check_cull_sound(coef, params, nt, ns, groups,
+                                            table, H, W, monkeypatch)
     assert n_cast > H * W and n_hit > H * W // 4 and n_occ > 50
 
 
@@ -352,3 +368,41 @@ def test_wrappers_ignore_cull_on_cpu():
                                   total_h=H, work=work, cull=cull)
         counts.append(work)
     assert counts[0] == counts[1]
+
+
+@pytest.mark.parametrize("h,w,row0,total_h", [(4, 1, 0, None), (1, 4, 0, None),
+                                             (1, 1, 0, None), (0, 4, 0, 4),
+                                             (2, 4, -1, 4)])
+def test_wrappers_reject_frames_without_ray_coordinates(h, w, row0, total_h):
+    """A pixel's frustum coordinates are col / (W - 1) and row /
+    (total_h - 1): at W = 1 or total_h = 1 the JAX megakernel raises
+    ZeroDivisionError while tracing (pallas_rt.py:643-644); the port's
+    wrappers and plain versions raise ValueError, before any device is
+    asked."""
+    scene, coef, params, nt, ns, groups, table = _cull_packs("island_morning")
+    for fn, c, p in ((trt.raytrace_planes, coef, params),
+                     (trt.raytrace_planes_torch, coef, params),
+                     (trt.raytrace_planes_batch, coef[None], params[None]),
+                     (trt.raytrace_planes_batch_torch, coef[None],
+                      params[None])):
+        with pytest.raises(ValueError, match="needs at least"):
+            fn(c, p, h, w, nt, ns, row0=row0, total_h=total_h)
+    with pytest.raises(ValueError, match="needs at least"):
+        trt._launch(coef[None], params[None], h, w, nt, ns, row0,
+                    h if total_h is None else total_h, table)
+
+
+def test_one_row_band_and_two_by_two_frame():
+    """The smallest shapes that do have ray coordinates: a one-row band of
+    a taller frame equals that row, and a 2 x 2 frame's rays are the
+    frustum's corners."""
+    scene, coef, params, nt, ns, groups, table = _cull_packs("mountains_day")
+    full = torch.stack(trt.raytrace_planes(coef, params, H, W, nt, ns))
+    band = torch.stack(trt.raytrace_planes(coef, params, 1, W, nt, ns,
+                                           row0=41, total_h=H))
+    assert torch.equal(band, full[:, 41:42])
+    dx, dy, dz = trt.primary_rays(params, 2, 2)
+    corners = torch.stack([params[b:b + 3] for b in (
+        trt.P_LU, trt.P_RU, trt.P_LD, trt.P_RD)])
+    want = corners / corners.norm(dim=1, keepdim=True)
+    assert torch.allclose(torch.stack([dx, dy, dz], 1), want, atol=1e-6)
