@@ -31,10 +31,15 @@ Goldens exist for 1280x720 and 1920x1080. At another size the gate cannot
 run (the goldens are the JAX oracle's frames): the script says so and exits
 2 unless --skip-parity or --quick is given. Exit code 1: the gate failed.
 
+`--sky reference` (with `--sky-downsample k`) runs on the reference
+panoramas under assets/backgrounds/; the goldens are procedural-sky
+frames, so it needs --skip-parity (or --quick), like a size without
+goldens.
+
 Not ported from bench.py, as they exist only for the TPU: the lock file
 and backend probes, --tune and --tune-sky with autotune.json, the batch=16
-arm with the dispatch-quantum estimate, the reference-sky golden suite and
---sky-downsample.
+arm with the dispatch-quantum estimate, and the reference-sky golden suite
+(its goldens need the reference panoramas, which are not shipped).
 """
 
 from __future__ import annotations
@@ -238,6 +243,13 @@ def _parser():
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default), cuda:N or cpu; no fallback "
                          "from a card to the CPU")
+    ap.add_argument("--sky", default="procedural",
+                    choices=["auto", "reference", "procedural"],
+                    help="sky panoramas: procedural (the goldens' sky), "
+                         "reference (assets/backgrounds/) or auto "
+                         "(reference where that directory exists)")
+    ap.add_argument("--sky-downsample", type=int, default=1,
+                    help="point-sample every k-th reference sky texel")
     return ap
 
 
@@ -246,6 +258,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
+    if args.sky_downsample < 1:
+        ap.error(f"--sky-downsample must be >= 1, got {args.sky_downsample}")
     device = args.device
 
     from raytracing_cuda_tpu_torch.app.loop import Engine
@@ -265,6 +279,17 @@ def main(argv=None) -> int:
     sky_shape = (256, 512) if args.quick else (2048, 4096)
 
     gate = not args.skip_parity and not args.quick
+    from raytracing_cuda_tpu_torch.scene.textures import REFERENCE_BACKGROUNDS
+
+    sky = args.sky
+    if sky == "auto":
+        sky = ("reference" if os.path.exists(REFERENCE_BACKGROUNDS)
+               else "procedural")
+    if gate and sky != "procedural":
+        log(f"--sky {args.sky} renders the reference panoramas; the goldens "
+            f"under {GOLDEN_ROOT} are procedural-sky frames, so the parity "
+            f"gate cannot run. Pass --skip-parity to bench without it.")
+        return 2
     golden_d = golden_dir(w, h) if gate else None
     if gate and golden_d is None:
         log(f"no goldens for {w}x{h} under {GOLDEN_ROOT}: they are the JAX "
@@ -274,12 +299,13 @@ def main(argv=None) -> int:
         return 2
 
     cfg = RenderConfig(width=w, height=h, procedural_sky_shape=sky_shape,
-                       sky_cache=not args.no_sky_cache)
+                       sky_cache=not args.no_sky_cache, sky_source=sky,
+                       sky_downsample=args.sky_downsample)
     eng = Engine(cfg, device)          # raises where the card is not there
     cuda = eng.device.type == "cuda"
     name = torch.cuda.get_device_name(eng.device) if cuda else "cpu"
     log(f"device={eng.device} ({name}) torch={torch.__version__} "
-        f"size={w}x{h} frames={frames} batch={args.batch}")
+        f"size={w}x{h} frames={frames} batch={args.batch} sky={sky}")
     details = {"device": str(eng.device), "device_name": name}
 
     def fresh(day=None):

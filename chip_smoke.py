@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu) with nvcc, in
-     parallel; ptxas must report no spills;
+  2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu) and kernel A's
+     diagnostic arms (csrc/raytrace_arms.cu) with nvcc, in parallel; ptxas
+     must report no spills, and each kernel's registers are printed;
   3. each kernel against its plain PyTorch version on the card at
      1280x720, bit for bit, for the four golden states, the worst pose, the
      seven degenerate states (EXTREME) and the classic scene, with times;
@@ -56,7 +57,17 @@ Phases (any failure exits non-zero):
      eight entries of the card and entry(), the worst-state probe over a
      3 x 4 sub-grid, one soak segment of 120 frames; the kernels' launch
      counters are read around each;
- 12. a JSON line per kernel form (each with its bound, from this run's
+ 12. the arms at 1280x720: at the worst pose and island_morning every arm
+     of kernel A (csrc/raytrace_arms.cu) against the same arm of its plain
+     version bit for bit, and the arms that compute the shipped function
+     (nocull, no_tbound, nohcull, depth4) against the shipped kernel; then
+     the probes in-process: experiments/megakernel_ablation_torch.py at
+     both poses (each arm's device time by CUDA graph replay; the arms'
+     counter read around the first), worst_pose_decompose_torch.py (the
+     stage split, procedural sky, then the reference-sky source on
+     synthetic panoramas), and one short tail_probe_torch.py and
+     readback_fps_torch.py run;
+ 13. a JSON line per kernel form (each with its bound, from this run's
      inputs), the card line, and the final status line.
 """
 
@@ -71,6 +82,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -222,6 +234,8 @@ def reset_counts():
     for fn in (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
                fx.fxaa, fx.fxaa_batch, fx.fxaa_ext):
         fn.launches = 0
+    cuda_rt.raytrace_planes.arm_launches = 0
+    cuda_rt.raytrace_planes_batch.arm_launches = 0
     cuda_rt.raytrace_planes_batch.frames = 0
     fx.fxaa_batch.frames = 0
     fx.fxaa_ext.frames = 0
@@ -237,7 +251,10 @@ def read_counts() -> dict:
             "fxaa": fx.fxaa.launches, "fxaa_k8": fx.fxaa_batch.launches,
             "fxaa_k8_frames": fx.fxaa_batch.frames,
             "fxaa_band": fx.fxaa_ext.launches,
-            "fxaa_band_frames": fx.fxaa_ext.frames}
+            "fxaa_band_frames": fx.fxaa_ext.frames,
+            "raytrace_megakernel_arms": (
+                cuda_rt.raytrace_planes.arm_launches
+                + cuda_rt.raytrace_planes_batch.arm_launches)}
 
 
 def states_equal(a, b) -> bool:
@@ -395,6 +412,34 @@ def kernel_device_ms(fn, reps: int, kname: str) -> float:
     return ms / n
 
 
+def ptxas_registers(log: str) -> dict:
+    """ptxas -v output → {entry function: registers it uses}."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
+def synthetic_skies(root: str, h: int, w: int) -> str:
+    """Four reference-sky PNGs {morning,day,evening,night}.png of h x w
+    under root, random texels from a seed → root."""
+    from raytracing_cuda_tpu_torch.scene.textures import SKY_NAMES
+    from raytracing_cuda_tpu_torch.utils.images import save_png
+
+    rng = np.random.default_rng(11)
+    os.makedirs(root, exist_ok=True)
+    for name in SKY_NAMES:
+        save_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                 os.path.join(root, f"{name}.png"), level=1)
+    return root
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -459,11 +504,12 @@ def main() -> int:
 
     print(_build.nvcc_version(), flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(_build.load, ("raytrace", "fxaa")))
-    print(f"built both kernels in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for name in ("raytrace", "fxaa"):
+    libs = ("raytrace", "raytrace_arms", "fxaa")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(_build.load, libs))
+    print(f"built both kernels and kernel A's arms in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name in libs:
         log = _build.BUILD_LOG[name]
         print(f"built {name}: nvcc {log['seconds']:.2f} s\n{log['ptxas']}",
               flush=True)
@@ -472,6 +518,9 @@ def main() -> int:
                                              log["ptxas"])]
         require(bool(spills) and not any(spills),
                 f"ptxas reports no spills for {name} ({spills})")
+        regs = ptxas_registers(log["ptxas"])
+        print(f"registers {name}: {regs}", flush=True)
+        report[f"registers_{name}"] = regs
 
     # --- 3. kernels vs plain versions on the card, bit for bit ---
     phase(3)
@@ -1515,8 +1564,124 @@ def main() -> int:
             f"RSS {soak[0]['rss_gb']:.2f} GB [{card}]")
     report["soak"] = soak
 
-    # --- 12. report ---
+    # --- 12. the arms: kernel A's diagnostic variants, and the probes ---
     phase(12)
+    from experiments import (megakernel_ablation_torch as ablation,
+                             readback_fps_torch, tail_probe_torch,
+                             worst_pose_decompose_torch as decompose)
+
+    # every arm against the same arm of the plain version; the arms that
+    # compute the shipped function against the shipped kernel, which
+    # phase 3 held against its plain version
+    identity = ("nocull", "no_tbound", "nohcull", "depth4")
+    arms = {k: v for k, v in ablation.ARMS.items() if v}
+    arms["depth4"] = ("depth4",)
+    # at the worst pose the plain version also counts each arm's work, for
+    # its bound (an arm that computes the shipped function has its bound)
+    arm_err, arm_bounds, arm_plain_ms = 0.0, {}, {}
+    for pose in ("worst_pose", "island_morning"):
+        coef, params, nt, ns, cu, _, full, _ = inputs[pose]
+        for arm, ablate in arms.items():
+            kern = torch.stack(cuda_rt.raytrace_planes(
+                coef, params, H, W, nt, ns, cull=cu, ablate=ablate))
+            if arm in identity:
+                want, what = full, "the shipped kernel"
+            else:
+                work = (dict.fromkeys(cuda_rt.WORK_KEYS, 0)
+                        if pose == "worst_pose" else None)
+                want, ms = timed(lambda: torch.stack(
+                    cuda_rt.raytrace_planes_torch(coef, params, H, W, nt,
+                                                  ns, work=work, cull=cu,
+                                                  ablate=ablate)))
+                what = "its plain version"
+                if work is not None:
+                    arm_plain_ms[arm] = ms
+                    arm_bounds[arm] = raytrace_bound(work, coef, params, 1,
+                                                     H, W)
+            err = float((kern - want).abs().max())
+            arm_err = max(arm_err, err)
+            require(bool(torch.isfinite(kern).all()) and err == 0.0
+                    and (arm != "noshade" or not kern[:3].any()),
+                    f"{pose}: kernel A arm {arm} vs {what} at 720p: "
+                    f"max|diff| {err}")
+
+    # the probes, as a user runs them; the arms' counter is read around the
+    # first, the path of this phase
+    reset_counts()
+    abl = {}
+    rc = ablation.main(["--reps", "5", "--n", "10"], abl)
+    counts = read_counts()
+    arm_launches = counts["raytrace_megakernel_arms"]
+    require(rc == 0 and set(abl["arms"]) == set(ablation.ARMS)
+            and arm_launches > 0 and counts["raytrace_megakernel"] > 0,
+            f"megakernel_ablation_torch at the worst pose launched every arm "
+            f"(csrc/raytrace_arms.cu) and the shipped kernel: {counts}")
+    abl_morning = {}
+    rc = ablation.main(["--day", "6", "--yaw", "309", "--reps", "5", "--n",
+                        "10"], abl_morning)
+    require(rc == 0 and set(abl_morning["arms"]) == set(ablation.ARMS),
+            "megakernel_ablation_torch at island_morning ran every arm")
+    for label, r in (("worst_pose", abl), ("island_morning", abl_morning)):
+        print(f"kernel A arms 720p {label} (device ms, CUDA graph replay, "
+              f"median of 5): " + ", ".join(
+                  f"{a} {v['median_ms']:.4f}" for a, v in r["arms"].items())
+              + f" [{card}]", flush=True)
+    print("kernel A arms 720p worst_pose, bound (ms, by) / plain version "
+          "(ms, CUDA events, one call): " + ", ".join(
+              f"{a} {b[0]:.6f} {b[1]} / {arm_plain_ms[a]:.1f}"
+              for a, b in arm_bounds.items())
+          + f"; the other arms compute the shipped function, bound "
+          f"{bounds_a['worst_pose'][0]:.6f} [{card}]", flush=True)
+
+    dec = {}
+    rc = decompose.main(["--reps", "5", "--n", "10"], dec)
+    dmed = {k: statistics.median(v) for k, v in dec["device_ms"].items()}
+    hmed = {k: statistics.median(v) for k, v in dec["host_ms"].items()}
+    require(rc == 0 and all(v > 0 for v in dmed.values())
+            and dmed["kernel+sky+fxaa"] > dmed["kernel_only"],
+            f"worst_pose_decompose_torch: device stages {dmed}")
+    print(f"stage split 720p worst pose: kernel A {dmed['kernel_only']:.4f}, "
+          f"+ sky lookup + quantize {dmed['kernel+sky']:.4f}, + kernel B "
+          f"{dmed['kernel+sky+fxaa']:.4f} ms (device time, CUDA graph "
+          f"replay); host half " + ", ".join(
+              f"{k} {v:.4f}" for k, v in hmed.items())
+          + f" ms (host clock) [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        sky_dir = synthetic_skies(os.path.join(tmp, "sky"), 512, 1024)
+        ref = {}
+        rc = decompose.main(["--reps", "1", "--n", "2", "--sky", "reference",
+                             "--sky-dir", sky_dir, "--sky-downsample", "2"],
+                            ref)
+        rc_missing = decompose.main(["--reps", "1", "--n", "1", "--sky",
+                                     "reference", "--sky-dir",
+                                     os.path.join(tmp, "none")])
+    require(rc == 0 and ref["sky"] == ("reference", 256, 512)
+            and rc_missing == 2,
+            f"the reference-sky source on synthetic 512x1024 panoramas, "
+            f"point-sampled by 2: exit {rc}, sky {ref.get('sky')}; missing "
+            f"panoramas exit {rc_missing}")
+
+    tail = {}
+    rc = tail_probe_torch.main(["--blocks", "10", "--frames", "10", "--sky",
+                                "procedural"], tail)
+    require(rc == 0 and tail["frame"]["p50"] > 0,
+            f"tail_probe_torch, 10 blocks of 10 frames: per frame "
+            f"{tail.get('frame')} [{card}]")
+    rb = {}
+    rc = readback_fps_torch.main(["--frames", "30", "--reps", "2"], rb)
+    require(rc == 0 and all(min(rb[m]["host_fps"]) > 0
+                            for m in readback_fps_torch.MODES),
+            f"readback_fps_torch, 2 reps of 30 frames: "
+            f"{ {m: rb[m]['host_fps'] for m in readback_fps_torch.MODES} } "
+            f"fps [{card}]")
+    bound_arm = arm_bounds["noshadow"]
+    report["arms"] = {"worst_pose": abl, "island_morning": abl_morning,
+                      "decompose": dec, "tail": tail, "readback": rb,
+                      "bounds_ms": {a: b[0] for a, b in arm_bounds.items()},
+                      "plain_ms": arm_plain_ms}
+
+    # --- 13. report ---
+    phase(13)
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
@@ -1557,6 +1722,14 @@ def main() -> int:
          "ms": ms_band, "plain_ms": ms_band_plain,
          "bound_ms": bound_band[0], "bound_by": bound_band[1],
          "library_ms": None},
+        {"name": "raytrace_megakernel_arms", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/raytrace_arms.cu",
+         "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",
+         "launches": arm_launches, "max_abs_err": arm_err,
+         "ms": abl["arms"]["noshadow"]["median_ms"],
+         "plain_ms": arm_plain_ms["noshadow"], "bound_ms": bound_arm[0],
+         "bound_by": bound_arm[1], "library_ms": None, "arm": "noshadow",
+         "pose": "worst_pose"},
     ]
     report["kernels"] = kernels
     report["kernel_a_hit_miss_mismatch_max"] = a_mismatch

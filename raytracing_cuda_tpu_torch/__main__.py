@@ -70,7 +70,7 @@ def _config(args):
     path = args.path if args.path in ("fast", "oracle") else "auto"
     return RenderConfig(width=w, height=h, sky_source=args.sky, path=path,
                         scene=args.scene, procedural_sky_shape=(ssh, ssw),
-                        preview=preview)
+                        sky_downsample=args.sky_downsample, preview=preview)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -81,8 +81,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--size", default="1280x720")
     ap.add_argument("--sky", default="auto",
                     choices=["auto", "reference", "procedural"],
-                    help="auto resolves to procedural: the reference "
-                         "panoramas are not shipped")
+                    help="reference: the panoramas under assets/backgrounds/ "
+                         "(not shipped); auto: those where that directory "
+                         "exists, else procedural")
+    ap.add_argument("--sky-downsample", type=int, default=1,
+                    help="point-sample every k-th reference sky texel")
     ap.add_argument("--sky-shape", default="2048x1024",
                     help="procedural panorama size WxH, same axis order as "
                          "--size")
@@ -158,6 +161,15 @@ def _check_usage(ap, args) -> None:
     if args.ssaa > 1 and args.command in ("window", "bench"):
         ap.error(f"--ssaa applies to render/record only; {args.command} "
                  f"always runs at --size")
+    if args.sky_downsample < 1:
+        ap.error(f"--sky-downsample must be >= 1, got {args.sky_downsample}")
+    if args.sky == "reference":
+        from raytracing_cuda_tpu_torch.scene.textures import (
+            REFERENCE_BACKGROUNDS)
+
+        if not os.path.isdir(REFERENCE_BACKGROUNDS):
+            ap.error(f"--sky reference reads the panoramas under "
+                     f"{REFERENCE_BACKGROUNDS}, which does not exist")
     if args.gif:
         try:
             import PIL  # noqa: F401

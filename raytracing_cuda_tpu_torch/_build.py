@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by nvcc into its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ctypes. Libraries go to `_build/` beside this file, named by a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is reused. A lock file per library serialises builds of it
+hash of the source, the headers it may include (`csrc/*.cuh`) and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused. A lock file per library serialises builds of it
 between processes and threads; different libraries build in parallel.
 `build` is the same scheme for any compiler (utils/frameio.py uses it with
 g++ for the native PNG writer).
@@ -55,16 +56,17 @@ def nvcc_version() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def lib_path(name: str, source: Path, flags, build_dir: Path = BUILD_DIR
-             ) -> Path:
-    """Where `source` built with `flags` lives: lib<name>-<hash>.so."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
+def lib_path(name: str, source: Path, flags, build_dir: Path = BUILD_DIR,
+             deps=()) -> Path:
+    """Where `source` built with `flags` lives: lib<name>-<hash>.so, the
+    hash over the source, the files in `deps` it includes and the flags."""
+    data = b"".join(p.read_bytes() for p in (source, *deps))
+    key = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:16]
     return build_dir / f"lib{name}-{key}.so"
 
 
 def build(name: str, source: Path, compiler: Callable[[], str], flags,
-          libs=(), build_dir: Path = BUILD_DIR) -> Path:
+          libs=(), build_dir: Path = BUILD_DIR, deps=()) -> Path:
     """Compile `source` into a shared library under build_dir (once per
     source and flags; the library's lock file serialises its builders) →
     its path. `compiler()` names the compiler and is asked only when a build
@@ -72,7 +74,7 @@ def build(name: str, source: Path, compiler: Callable[[], str], flags,
     read into BUILD_LOG; a library without it is built again, so BUILD_LOG
     always holds the output of the build that made the library. Raises
     RuntimeError when the compiler fails."""
-    out = lib_path(name, source, (*flags, *libs), build_dir)
+    out = lib_path(name, source, (*flags, *libs), build_dir, deps)
     saved = out.with_suffix(".log")
     build_dir.mkdir(parents=True, exist_ok=True)
     with open(build_dir / f".{name}.lock", "w") as lock:
@@ -108,7 +110,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     lib = ctypes.CDLL(str(build(name, CSRC / f"{name}.cu", nvcc_path,
-                                NVCC_FLAGS)))
+                                NVCC_FLAGS, deps=sorted(CSRC.glob("*.cuh")))))
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

@@ -121,10 +121,12 @@ class Engine:
         if src is not None:
             # the resize path (main.cpp:293-306): same scene, sky and state
             if (src.device, src.config.scene, src.config.sky_source,
+                    src.config.sky_downsample,
                     src.config.procedural_sky_shape,
                     src.sky_pack is not None) != (
                     self.device, config.scene, config.sky_source,
-                    config.procedural_sky_shape, static):
+                    config.sky_downsample, config.procedural_sky_shape,
+                    static):
                 raise ValueError("share_assets_from needs the same device, "
                                  "scene, sky and sky form")
             self.scene, self.state = src.scene, src.state
@@ -132,7 +134,7 @@ class Engine:
             self.sky_h, self.sky_w = src.sky_h, src.sky_w
         else:
             self.scene = build_named_scene(config.scene)
-            texels = load_skies(config.sky_source,
+            texels = load_skies(config.sky_source, config.sky_downsample,
                                 config.procedural_sky_shape).texels
             self.sky_h, self.sky_w = texels.shape[1:3]
             texels = torch.from_numpy(texels).to(self.device)

@@ -22,6 +22,14 @@ cull table host_packs returns, `cull=`. They return 7 (H, W), resp.
 (K, H, W), float32 planes: hit-path RGB, miss weight, miss direction xyz.
 `raytrace_planes_count` is the kernel's counting launch (chip_smoke.py and
 the card tests only).
+
+`ablate=` selects a diagnostic arm of the megakernel (the TPU kernel's
+`ablate` arms, pallas_rt.py:559-584, and its t_bound=False): a static
+variant that skips part of the work, for splitting the kernel's time
+(experiments/megakernel_ablation_torch.py). No render path passes it. On a
+CUDA tensor an arm launches csrc/raytrace_arms.cu (a library of its own,
+built at the first arm's launch) and counts on the wrapper's
+`arm_launches`; on a CPU tensor the plain version runs the same arm.
 """
 
 from __future__ import annotations
@@ -49,6 +57,22 @@ WORK_KEYS = ("rays", "tri_tests", "sph_tests", "shaded", "shadow",
 # that their lanes needed, then the same two for shadow rays
 COUNT_KEYS = ("cast_warp_rows", "cast_lane_rows", "shadow_warp_rows",
               "shadow_lane_rows")
+
+# --- diagnostic arms (csrc/raytrace_body.cuh ARM_*) ---
+ARM_NOSHADOW = 1     # lights are never blocked: no shadow ray is cast
+ARM_NOSHADE = 2      # a hit ends the ray and adds nothing
+ARM_NOCULL = 4       # no per-ray cluster cull (the plain version has none)
+ARM_NO_TBOUND = 8    # the culls' t_hi is BIG (the TPU's t_bound=False)
+ARM_NOHCULL = 16     # a shadow ray tests the sea plane after the groups
+ARM_FLAGS = {"noshadow": ARM_NOSHADOW, "noshade": ARM_NOSHADE,
+             "nocull": ARM_NOCULL | ARM_NOHCULL, "no_tbound": ARM_NO_TBOUND,
+             "nohcull": ARM_NOHCULL, "hcull": 0}
+# the (arms, depth) pairs csrc/raytrace_arms.cu instantiates
+ARMS_ON_CARD = frozenset(
+    [(0, d) for d in range(MAX_DEPTH + 1)]
+    + [(a, MAX_DEPTH) for a in (ARM_NOSHADOW, ARM_NOSHADE,
+                                ARM_NOCULL | ARM_NOHCULL, ARM_NO_TBOUND,
+                                ARM_NOHCULL)])
 
 # --- coefficient-table channel map (pallas_rt.py:61-83) ---
 C_COL = 0            # 0-2   color rgb
@@ -318,6 +342,59 @@ def pack_params(cam_rays: CameraRays, lights: Lights, ambient, sea_y,
     return p
 
 
+def parse_ablate(ablate) -> tuple:
+    """Arm names (the JAX package's, pallas_rt.py:562-571) → (arms, depth):
+    the ARM_* bits and the last level traced, normalised so that arms which
+    run the same instructions give the same pair.
+
+    "noshadow", "noshade", "nocull", "nohcull", "no_tbound" (the JAX
+    package's t_bound=False) and "depthN" (levels 0..N, N <= MAX_DEPTH).
+    "nocull" also tests the plane after the groups, as the JAX package's
+    nocull turns its below-horizon cull off; "hcull" is the shipped kernel
+    (its shadow rays test the plane first). Under "noshade" the shadows,
+    the plane test's place and the depth are moot (no hit is shaded), under
+    "noshadow" the plane test's place. "specgate"/"nospecgate" and any
+    other name raise ValueError: the TPU kernel's specular hoist has no
+    counterpart here, where each ray computes its own specular term."""
+    arms, depth = 0, MAX_DEPTH
+    for name in ablate:
+        if name in ("specgate", "nospecgate"):
+            raise ValueError(
+                f"arm {name!r}: the TPU kernel's hoisted specular gate has "
+                f"no counterpart in csrc/raytrace.cu, which computes each "
+                f"ray's specular term where it shades the ray")
+        if name in ARM_FLAGS:
+            arms |= ARM_FLAGS[name]
+        elif (name.startswith("depth") and name[5:].isdigit()
+              and int(name[5:]) <= MAX_DEPTH):
+            depth = int(name[5:])
+        else:
+            raise ValueError(f"unknown arm {name!r}: the arms are "
+                             f"{sorted(ARM_FLAGS)} and depth0..depth"
+                             f"{MAX_DEPTH}")
+    if arms & ARM_NOSHADE:
+        return arms & ~(ARM_NOSHADOW | ARM_NOHCULL), MAX_DEPTH
+    if arms & ARM_NOSHADOW:
+        arms &= ~ARM_NOHCULL
+    return arms, depth
+
+
+def _card_arms(ablate):
+    """parse_ablate for the wrappers: None for ablate=() (the shipped
+    kernel), else the pair, which csrc/raytrace_arms.cu must instantiate
+    (checked on every device, so an arm runs on the CPU only where it also
+    runs on the card)."""
+    if not ablate:
+        return None
+    pair = parse_ablate(ablate)
+    if pair not in ARMS_ON_CARD:
+        raise ValueError(f"ablate={tuple(ablate)} → (arms {pair[0]}, depth "
+                         f"{pair[1]}) has no instantiation in "
+                         f"csrc/raytrace_arms.cu; those are "
+                         f"{sorted(ARMS_ON_CARD)}")
+    return pair
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -463,10 +540,11 @@ class _Work:
 
 
 def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
-                 cull=None):
-    """Trace primary rays (dx, dy, dz) of one pixel chunk into out[:, sl].
-    work, where given, counts what the chunk's rays needed under the cull
-    groups `cull` (_Work)."""
+                 cull=None, arms=0, depth=MAX_DEPTH):
+    """Trace primary rays (dx, dy, dz) of one pixel chunk into out[:, sl],
+    levels 0..depth, under the ARM_* bits `arms` (parse_ablate; the cull
+    arms change nothing here). work, where given, counts what the chunk's
+    rays needed under the cull groups `cull` (_Work)."""
     if work is not None:
         work = _Work(work, coef, P, n_tri, cull)
     n = dx.shape[0]
@@ -488,7 +566,7 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
     live = torch.arange(n, device=dev)
     col = lambda v: v[:, None]
 
-    for _ in range(MAX_DEPTH + 1):
+    for _ in range(depth + 1):
         if live.numel() == 0:
             break
         lox, loy, loz = ox[live], oy[live], oz[live]
@@ -519,6 +597,8 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
         miss = live[~hit]
         mw[miss] = thr[miss]
         mdir[:, miss] = torch.stack([dx[miss], dy[miss], dz[miss]])
+        if arms & ARM_NOSHADE:               # a hit adds nothing and ends
+            break
 
         sel = hit.nonzero().squeeze(1)
         live = live[sel]
@@ -560,7 +640,7 @@ def _trace_chunk(coef, P, n_tri, n_sph, dx, dy, dz, out, sl, work=None,
             sdx, sdy, sdz = lvx * inv, lvy * inv, lvz * inv
             angle = torch.clamp(nx * sdx + ny * sdy + nz * sdz, min=0.0)
             need = (angle > 0).nonzero().squeeze(1)
-            if need.numel():
+            if need.numel() and not arms & ARM_NOSHADOW:
                 q = lambda v: v[need]
                 so = (q(hx) + q(sdx) * 0.001, q(hy) + q(sdy) * 0.001,
                       q(hz) + q(sdz) * 0.001)
@@ -644,7 +724,7 @@ def primary_rays(params, H: int, W: int, row0: int = 0, total_h=None):
 def raytrace_planes_torch(coef, params, H: int, W: int, n_tri_rows: int,
                           n_sph_rows: int, row0: int = 0, total_h=None,
                           chunk: int = 65536, work: dict | None = None,
-                          cull=None):
+                          cull=None, ablate=()):
     """Plain PyTorch megakernel: 7 (H, W) float32 planes, chunked over pixels.
 
     The same math as csrc/raytrace.cu (and the TPU kernel minus its output-
@@ -655,27 +735,32 @@ def raytrace_planes_torch(coef, params, H: int, W: int, n_tri_rows: int,
     rays cast and occluded, and the row tests of the cast and unoccluded
     shadow rays, each ray counting only the rows under the cull bounds it
     can reach; it needs `cull`, the cull_groups (or cull_table) of the
-    packed scene. Without `work`, `cull` is not read.
+    packed scene. Without `work`, `cull` is not read. `ablate`: arm names
+    (parse_ablate), any combination; () is the shipped kernel's function.
     """
     if work is not None and (cull is None or len(cull) == 0):
         raise ValueError("counting work needs the scene's cull groups")
+    arms, depth = parse_ablate(ablate)
     dx, dy, dz = primary_rays(params, H, W, row0, total_h)
     out = torch.empty((7, H * W), dtype=f32, device=coef.device)
     for s in range(0, H * W, chunk):
         sl = slice(s, min(s + chunk, H * W))
         _trace_chunk(coef, params, n_tri_rows, n_sph_rows, dx[sl].clone(),
-                     dy[sl].clone(), dz[sl].clone(), out, sl, work, cull)
+                     dy[sl].clone(), dz[sl].clone(), out, sl, work, cull,
+                     arms, depth)
     return tuple(out.reshape(7, H, W))
 
 
 def raytrace_planes_batch_torch(coefs, params, H: int, W: int,
                                 n_tri_rows: int, n_sph_rows: int,
                                 row0: int = 0, total_h=None,
-                                work: dict | None = None, cull=None):
+                                work: dict | None = None, cull=None,
+                                ablate=()):
     """Plain K-frame megakernel: 7 (K, H, W) float32 planes, one
     raytrace_planes_torch call per frame."""
     per_frame = [raytrace_planes_torch(c, p, H, W, n_tri_rows, n_sph_rows,
-                                       row0, total_h, work=work, cull=cull)
+                                       row0, total_h, work=work, cull=cull,
+                                       ablate=ablate)
                  for c, p in zip(coefs, params)]
     return tuple(torch.stack(planes) for planes in zip(*per_frame))
 
@@ -701,10 +786,11 @@ def _check_cull(cull, device):
 
 
 def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h, cull,
-            counts=None):
+            counts=None, arms=None):
     """One launch of csrc/raytrace.cu over K frames → (7, K, H, W) float32.
     With `counts` (4 zeroed int64 on the device), the counting launch adds
-    its COUNT_KEYS tallies there."""
+    its COUNT_KEYS tallies there. With `arms`, an (arms, depth) pair of
+    ARMS_ON_CARD, the arm's launch from csrc/raytrace_arms.cu instead."""
     from raytracing_cuda_tpu_torch import _build
 
     check_frame(H, W, row0, total_h)
@@ -721,20 +807,26 @@ def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h, cull,
                          f"{tuple(params.shape)} for {n_rows} rows")
     if not 1 <= K <= 65535:
         raise ValueError(f"K = {K} frames; the kernel takes 1 to 65535")
-    lib = _build.load("raytrace")
-    fn = lib.rt_raytrace_planes if counts is None else lib.rt_raytrace_count
     args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.argtypes = args + ([] if counts is None else [ctypes.c_void_p]) + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+            ctypes.c_int, ctypes.c_float, ctypes.c_float]
     out = torch.empty((7, K, H, W), dtype=f32, device=coefs.device)
     # the frames' tile counters, zeroed by the launcher on the stream
     tile_next = torch.empty(K, dtype=torch.int32, device=coefs.device)
-    tail = [tile_next.data_ptr()] + ([] if counts is None
-                                     else [counts.data_ptr()])
+    if arms is not None:
+        lib = _build.load("raytrace_arms")
+        fn = lib.rt_raytrace_arms
+        args += [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        tail = [*arms, tile_next.data_ptr()]
+    else:
+        lib = _build.load("raytrace")
+        fn = lib.rt_raytrace_planes if counts is None else lib.rt_raytrace_count
+        args += [ctypes.c_void_p] * (1 if counts is None else 2)
+        tail = [tile_next.data_ptr()] + ([] if counts is None
+                                         else [counts.data_ptr()])
+    fn.argtypes = args + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(coefs.device):
         stream = torch.cuda.current_stream(coefs.device).cuda_stream
         err = fn(coefs.data_ptr(), coefs.shape[1], n_rows, 1 + n_tri_rows,
@@ -742,7 +834,8 @@ def _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h, cull,
                  out.data_ptr(), K, H, W, row0,
                  float(np.float32(1.0 / (W - 1))),
                  float(np.float32(1.0 / (total_h - 1))), *tail, stream)
-    _build.check(lib, err, "raytrace kernel launch")
+    _build.check(lib, err, "raytrace kernel launch" if arms is None
+                 else f"raytrace arm {arms} launch")
     return out
 
 
@@ -753,7 +846,7 @@ def _on_cuda(t):
 
 def raytrace_planes_batch(coefs, params, H: int, W: int, n_tri_rows: int,
                           n_sph_rows: int, row0: int = 0, total_h=None,
-                          cull=None):
+                          cull=None, ablate=()):
     """K-frame megakernel → 7 (K, H, W) float32 planes.
 
     coefs (K, n_rows, N_CHANNELS) and params (K, N_PARAMS), one scene table
@@ -762,15 +855,22 @@ def raytrace_planes_batch(coefs, params, H: int, W: int, n_tri_rows: int,
     csrc/raytrace.cu once with the frame in the grid (replaces
     pallas_rt.py:1151 with grid (K, H/TH, W/TW)), culling by `cull`, the
     cull table host_packs returns, on the same device, and count one launch
-    and K frames.
+    and K frames. A diagnostic arm (`ablate`, one of ARMS_ON_CARD after
+    parse_ablate) launches csrc/raytrace_arms.cu and counts on
+    `arm_launches` only.
     """
     total_h = H if total_h is None else total_h
+    arms = _card_arms(ablate)
     if coefs.device.type == "cpu":
         return raytrace_planes_batch_torch(coefs, params, H, W, n_tri_rows,
-                                           n_sph_rows, row0, total_h)
+                                           n_sph_rows, row0, total_h,
+                                           ablate=ablate)
     _on_cuda(coefs)
     out = _launch(coefs, params, H, W, n_tri_rows, n_sph_rows, row0, total_h,
-                  cull)
+                  cull, arms=arms)
+    if arms is not None:
+        raytrace_planes_batch.arm_launches += 1
+        return tuple(out)
     raytrace_planes_batch.launches += 1
     raytrace_planes_batch.frames += coefs.shape[0]
     return tuple(out)
@@ -778,30 +878,38 @@ def raytrace_planes_batch(coefs, params, H: int, W: int, n_tri_rows: int,
 
 raytrace_planes_batch.launches = 0
 raytrace_planes_batch.frames = 0
+raytrace_planes_batch.arm_launches = 0
 
 
 def raytrace_planes(coef, params, H: int, W: int, n_tri_rows: int,
-                    n_sph_rows: int, row0: int = 0, total_h=None, cull=None):
+                    n_sph_rows: int, row0: int = 0, total_h=None, cull=None,
+                    ablate=()):
     """Megakernel → 7 (H, W) float32 planes (r, g, b, miss weight, miss dir).
 
     The K = 1 call of the batch kernel (as pallas_rt.py:1174-1189). CPU
     tensors run raytrace_planes_torch (cull is not read); CUDA tensors
     launch csrc/raytrace.cu with `cull`, the cull table host_packs returns,
-    on the same device, and count the launch on this wrapper. row0/total_h place an
-    H-row band inside a total_h-row frame.
+    on the same device, and count the launch on this wrapper. row0/total_h
+    place an H-row band inside a total_h-row frame. `ablate` as in
+    raytrace_planes_batch (counted on `arm_launches`).
     """
     total_h = H if total_h is None else total_h
+    arms = _card_arms(ablate)
     if coef.device.type == "cpu":
         return raytrace_planes_torch(coef, params, H, W, n_tri_rows,
-                                     n_sph_rows, row0, total_h)
+                                     n_sph_rows, row0, total_h, ablate=ablate)
     _on_cuda(coef)
     out = _launch(coef[None], params[None], H, W, n_tri_rows, n_sph_rows,
-                  row0, total_h, cull)
-    raytrace_planes.launches += 1
+                  row0, total_h, cull, arms=arms)
+    if arms is None:
+        raytrace_planes.launches += 1
+    else:
+        raytrace_planes.arm_launches += 1
     return tuple(out[:, 0])
 
 
 raytrace_planes.launches = 0
+raytrace_planes.arm_launches = 0
 
 
 def raytrace_planes_count(coefs, params, H: int, W: int, n_tri_rows: int,

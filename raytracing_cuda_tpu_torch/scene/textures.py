@@ -1,5 +1,5 @@
-"""Sky panoramas: procedural generation, the per-frame blend, packing and
-the flat lookups (port of the flat part of
+"""Sky panoramas: the reference panoramas and procedural ones, the
+per-frame blend, packing and the flat lookups (port of the flat part of
 raytracing_cuda_tpu/scene/textures.py).
 
 The reference binds four equirectangular panoramas (morning/day/evening/
@@ -21,6 +21,8 @@ weights are uniform across the frame) and pay one gather per sky ray
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Tuple
 
 import numpy as np
@@ -28,6 +30,15 @@ import torch
 
 from raytracing_cuda_tpu_torch.core.math3d import PI, true_div
 from raytracing_cuda_tpu_torch.core.types import SkyTextures
+from raytracing_cuda_tpu_torch.utils.images import load_png
+
+SKY_NAMES = ("morning", "day", "evening", "night")
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# where the reference's backgrounds/{morning,day,evening,night}.png go (they
+# are not shipped with the repository), and the cache of decoded arrays
+REFERENCE_BACKGROUNDS = os.path.join(_REPO_ROOT, "assets", "backgrounds")
+CACHE_DIR = os.path.join(_REPO_ROOT, "assets", "cache")
 
 _HALF_PI = float(PI / np.float32(2.0))
 _PI = float(PI)
@@ -70,15 +81,51 @@ def procedural_skies(height: int = 256, width: int = 512) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def load_skies(source: str = "procedural",
-               procedural_shape: Tuple[int, int] = (2048, 4096)) -> SkyTextures:
-    """Sky textures by source. Only the procedural family exists here, so
-    'auto' (the JAX package's "reference panoramas where present") resolves
-    to it."""
-    if source not in ("auto", "procedural"):
-        raise ValueError(f"unknown sky source {source!r}; the port ships "
-                         f"only 'procedural'")
-    return SkyTextures(texels=procedural_skies(*procedural_shape))
+def load_reference_skies(path: str = REFERENCE_BACKGROUNDS,
+                         downsample: int = 1, cache: bool = True) -> np.ndarray:
+    """The four reference panoramas {morning,day,evening,night}.png under
+    `path`, (4, H, W, 3) uint8 (textures.py:71-95 of the JAX package).
+
+    RGB or RGBA PNGs (alpha dropped), decoded by utils.images.load_png;
+    downsample=k point-samples every k-th texel of each axis. The decoded
+    array is cached as .npz under assets/cache/, keyed by the directory's
+    absolute path and k. Raises FileNotFoundError naming the first missing
+    file.
+    """
+    tag = hashlib.sha1(os.path.abspath(path).encode()).hexdigest()[:8]
+    cache_file = os.path.join(CACHE_DIR, f"skies_{tag}_ds{downsample}.npz")
+    if cache and os.path.exists(cache_file):
+        return np.load(cache_file)["texels"]
+    files = [os.path.join(path, f"{name}.png") for name in SKY_NAMES]
+    for f in files:
+        if not os.path.exists(f):
+            raise FileNotFoundError(
+                f"reference sky panorama {f} is missing: copy the reference's "
+                f"backgrounds/{{{','.join(SKY_NAMES)}}}.png there")
+    texels = np.stack([load_png(f)[::downsample, ::downsample]
+                       for f in files])
+    if cache:
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        np.savez_compressed(cache_file, texels=texels)
+    return texels
+
+
+def load_skies(source: str = "auto", downsample: int = 1,
+               procedural_shape: Tuple[int, int] = (2048, 4096),
+               path: str = REFERENCE_BACKGROUNDS) -> SkyTextures:
+    """Sky textures by source (textures.py:98-110 of the JAX package):
+    'reference' (the panoramas under `path`, point-sampled by downsample),
+    'procedural', or 'auto': reference where `path` exists, else
+    procedural."""
+    if source == "auto":
+        source = "reference" if os.path.exists(path) else "procedural"
+    if source == "reference":
+        texels = load_reference_skies(path, downsample)
+    elif source == "procedural":
+        texels = procedural_skies(*procedural_shape)
+    else:
+        raise ValueError(f"unknown sky source {source!r}")
+    return SkyTextures(texels=texels)
 
 
 def blend_sky(texels: torch.Tensor, sky_vars) -> torch.Tensor:

@@ -27,7 +27,10 @@ class RenderConfig:
     # one-shot render_frame (a debug knob, bit-identical frames)
     scene: str = "island"        # 'island' | 'classic'
     antialiasing: bool = True    # FXAA default on (scene.cpp:24)
-    sky_source: str = "procedural"  # or 'auto' (→ procedural)
+    sky_source: str = "procedural"  # 'reference' (the panoramas under
+    # scene/textures.REFERENCE_BACKGROUNDS) | 'procedural' | 'auto'
+    # (reference where that directory exists)
+    sky_downsample: int = 1      # point-sample every k-th reference texel
     procedural_sky_shape: tuple = (2048, 4096)
     preview: int = 1             # windowed viewer: render at full size,
     # box-downsample by this factor on the device, read back the small
@@ -43,7 +46,7 @@ class RenderConfig:
 
     _PATHS = ("auto", "fast", "oracle")
     _SCENES = ("island", "classic")
-    _SKY_SOURCES = ("auto", "procedural")
+    _SKY_SOURCES = ("auto", "reference", "procedural")
 
     def __post_init__(self):
         if self.width < 2 or self.height < 2:
@@ -60,6 +63,9 @@ class RenderConfig:
         if self.sky_source not in self._SKY_SOURCES:
             raise ValueError(f"sky_source must be one of {self._SKY_SOURCES},"
                              f" got {self.sky_source!r}")
+        if self.sky_downsample < 1:
+            raise ValueError(f"sky_downsample must be >= 1, got "
+                             f"{self.sky_downsample}")
         if len(self.procedural_sky_shape) != 2 or any(
                 v < 8 for v in self.procedural_sky_shape):
             raise ValueError(f"procedural_sky_shape must be (h, w) with both "

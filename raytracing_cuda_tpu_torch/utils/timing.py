@@ -102,12 +102,9 @@ class FrameTimer:
                           host_seconds)
 
 
-def graph_device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of fn() on the current CUDA device, from
-    CUDA events around 5 replays of a CUDA graph of reps calls,
-    which the card runs back to back without waiting on the host. For
-    launches so short that events around a host loop time the host's launch
-    rate instead."""
+def capture_graph(fn, reps: int):
+    """A CUDA graph of reps calls of fn() on the current CUDA device, after
+    one warm-up call outside the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -119,12 +116,26 @@ def graph_device_ms(fn, reps: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, reps: int, replays: int = 5) -> float:
+    """Device milliseconds per call of a capture_graph(fn, reps) graph,
+    from CUDA events around `replays` replays back to back."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    replays = 5
     for _ in range(replays):
         graph.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / (replays * reps)
+
+
+def graph_device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of fn() on the current CUDA device, from
+    CUDA events around 5 replays of a CUDA graph of reps calls,
+    which the card runs back to back without waiting on the host. For
+    launches so short that events around a host loop time the host's launch
+    rate instead."""
+    return replay_ms(capture_graph(fn, reps), reps)

@@ -253,8 +253,12 @@ def _imports(path: Path):
 
 
 SCRIPTS = ["chip_smoke.py", "bench_torch.py", "__torch_entry__.py",
-           "experiments/worst_state_probe_torch.py",
-           "experiments/soak_torch.py"]
+           "experiments/megakernel_ablation_torch.py",
+           "experiments/readback_fps_torch.py",
+           "experiments/soak_torch.py",
+           "experiments/tail_probe_torch.py",
+           "experiments/worst_pose_decompose_torch.py",
+           "experiments/worst_state_probe_torch.py"]
 
 
 def test_port_and_scripts_import_nothing_of_jax():

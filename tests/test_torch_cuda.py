@@ -173,6 +173,80 @@ def test_raytrace_counting_launch_between_plain_and_brute_force(dev, name):
         assert lanes <= 32 * warps and warps <= lanes, (kind, c)
 
 
+# kernel A's diagnostic arms (csrc/raytrace_arms.cu), and those of them
+# that compute the shipped function
+ARMS = {"noshadow": ("noshadow",), "noshade": ("noshade",),
+        "sweep_only": ("noshade", "noshadow"), "depth0": ("depth0",),
+        "depth1": ("depth1",), "depth2": ("depth2",), "nocull": ("nocull",),
+        "no_tbound": ("no_tbound",), "nohcull": ("nohcull",),
+        "depth4": ("depth4",)}
+IDENTITY_ARMS = ("nocull", "no_tbound", "nohcull", "depth4")
+
+
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_raytrace_arm_matches_plain(dev, arm):
+    """Each arm equals the same arm of the plain version bit for bit on the
+    four golden states: one frame per launch (counted on arm_launches, not
+    on launches), three frames per launch, and a 30-row band at row0 7 of
+    those three; an arm that computes the shipped function also equals the
+    shipped kernel."""
+    ablate = ARMS[arm]
+    packs = [_packs(name, dev) for name in sorted(CASES)]
+    nt, ns, cull = packs[0][2:]
+    before = (cuda_rt.raytrace_planes.launches,
+              cuda_rt.raytrace_planes.arm_launches)
+    for coef, params, *_ in packs:
+        kern = torch.stack(cuda_rt.raytrace_planes(
+            coef, params, H, W, nt, ns, cull=cull, ablate=ablate))
+        plain = torch.stack(cuda_rt.raytrace_planes_torch(
+            coef, params, H, W, nt, ns, ablate=ablate))
+        assert torch.equal(kern, plain)
+        if arm in IDENTITY_ARMS:
+            assert torch.equal(kern, torch.stack(cuda_rt.raytrace_planes(
+                coef, params, H, W, nt, ns, cull=cull)))
+    launched = 4 if arm in IDENTITY_ARMS else 0
+    assert (cuda_rt.raytrace_planes.launches,
+            cuda_rt.raytrace_planes.arm_launches) == (before[0] + launched,
+                                                      before[1] + 4)
+    coefs = torch.stack([p[0] for p in packs[:3]])
+    params = torch.stack([p[1] for p in packs[:3]])
+    for h, row0 in ((H, 0), (30, 7)):
+        kern = cuda_rt.raytrace_planes_batch(coefs, params, h, W, nt, ns,
+                                             row0=row0, total_h=H, cull=cull,
+                                             ablate=ablate)
+        torch.cuda.synchronize()
+        plain = cuda_rt.raytrace_planes_batch_torch(
+            coefs, params, h, W, nt, ns, row0=row0, total_h=H, ablate=ablate)
+        assert all(k.shape == (3, h, W) for k in kern)
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+
+
+def test_raytrace_arm_failures_raise(dev, monkeypatch):
+    """No arm falls back to the plain version: a pair the arms library does
+    not instantiate, a missing cull table, a failed build and a launch the
+    launcher refuses all raise."""
+    from raytracing_cuda_tpu_torch import _build
+
+    coef, params, nt, ns, cull = _packs("island_morning", dev)
+    with pytest.raises(ValueError, match="no instantiation"):
+        cuda_rt.raytrace_planes(coef, params, H, W, nt, ns, cull=cull,
+                                ablate=("noshadow", "depth1"))
+    with pytest.raises(ValueError, match="cull"):
+        cuda_rt.raytrace_planes(coef, params, H, W, nt, ns,
+                                ablate=("noshadow",))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_rt._launch(coef[None], params[None], H, W, nt, ns, 0, H, cull,
+                        arms=(cuda_rt.ARM_NOSHADOW, 1))
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="raytrace_arms"):
+        cuda_rt.raytrace_planes(coef, params, H, W, nt, ns, cull=cull,
+                                ablate=("depth1",))
+
+
 @pytest.mark.parametrize("shape", [(96, 160), (720, 1280), (37, 53)])
 def test_fxaa_kernel_matches_plain(dev, shape):
     img = torch.from_numpy(np.random.default_rng(0).integers(

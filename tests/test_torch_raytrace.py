@@ -61,8 +61,13 @@ def test_plain_matches_pallas_interpret(name):
         tri_clusters=tc, sph_clusters=sc)])
     got = _port_planes(ts, st, tc, sc)
     assert got.shape == ref.shape == (7, H, W)
-    assert np.isfinite(got).all()
+    assert_planes_agree(ref, got)
 
+
+def assert_planes_agree(ref, got):
+    """The tolerances of the module docstring: 7 planes of the JAX kernel
+    (ref) against the port's (got), numpy (7, H, W) float32."""
+    assert np.isfinite(got).all()
     cls = (ref[3] > 0) != (got[3] > 0)
     assert cls.mean() < 0.003, f"{cls.sum()} hit/miss mismatches"
     d = np.abs(ref - got)[:, ~cls]

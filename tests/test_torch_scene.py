@@ -109,8 +109,11 @@ def test_pack_layout_and_pad_rows():
 
 
 def test_cuda_source_constants_match():
-    """csrc/raytrace.cu's channel and slot constants equal cuda_rt's."""
-    src = (Path(trt.__file__).parents[1] / "csrc" / "raytrace.cu").read_text()
+    """The channel and slot constants of kernel A's body
+    (csrc/raytrace_body.cuh, which csrc/raytrace.cu and
+    csrc/raytrace_arms.cu compile) equal cuda_rt's."""
+    src = (Path(trt.__file__).parents[1] / "csrc"
+           / "raytrace_body.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert len(consts) > 30
     for name, value in consts.items():

@@ -90,8 +90,14 @@ def test_flat_pair_lookup_matches(skies, seed, day):
     assert np.array_equal(got[~flips], ref[~flips])
 
 
-def test_load_skies_procedural_only():
-    sky = ttx.load_skies("procedural", (16, 32))
-    assert sky.texels.shape == (4, 16, 32, 3)
+def test_load_skies_procedural_only(tmp_path):
+    """Where no reference panoramas exist, 'procedural' and 'auto' give the
+    procedural family, and 'reference' names the missing file."""
+    for source in ("procedural", "auto"):
+        sky = ttx.load_skies(source, procedural_shape=(16, 32),
+                             path=str(tmp_path / "absent"))
+        assert sky.texels.shape == (4, 16, 32, 3)
+    with pytest.raises(FileNotFoundError, match="morning.png"):
+        ttx.load_skies("reference", path=str(tmp_path / "absent"))
     with pytest.raises(ValueError):
-        ttx.load_skies("reference")
+        ttx.load_skies("cubemap")

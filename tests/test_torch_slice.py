@@ -159,7 +159,8 @@ def test_engine_device_is_explicit():
 
 
 @pytest.mark.parametrize("bad", [dict(width=1), dict(scene="x"),
-                                 dict(sky_source="reference"),
+                                 dict(sky_source="reference",
+                                      sky_downsample=0),
                                  dict(procedural_sky_shape=(4, 8)),
                                  dict(aspect=0.0)])
 def test_render_config_validation(bad):
