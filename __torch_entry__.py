@@ -38,13 +38,16 @@ def _device(device) -> torch.device:
 
 
 def _setup(device, sky_shape=SKY_SHAPE):
-    """(scene, settled initial state, the four panoramas on `device`)."""
+    """(scene, settled initial state, the four panoramas), all on
+    `device`."""
+    from raytracing_cuda_tpu_torch.core.types import to_device
     from raytracing_cuda_tpu_torch.scene.builders import build_scene
     from raytracing_cuda_tpu_torch.scene.textures import procedural_skies
     from raytracing_cuda_tpu_torch.sim import state as sim
 
     sky = torch.from_numpy(procedural_skies(*sky_shape)).to(device)
-    return build_scene(), sim.settle(sim.init_state()), sky
+    return (to_device(build_scene(), device),
+            sim.settle(sim.init_state(device)), sky)
 
 
 def entry(device="cuda"):

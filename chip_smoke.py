@@ -11,7 +11,10 @@ Phases (any failure exits non-zero):
      must report no spills, and each kernel's registers are printed;
   3. each kernel against its plain PyTorch version on the card at
      1280x720, bit for bit, for the four golden states, the worst pose, the
-     seven degenerate states (EXTREME) and the classic scene, with times;
+     seven degenerate states (EXTREME) and the classic scene, with times,
+     on packs built on the card (each held against the same state's packs
+     built on the CPU: equal but for the trig-inherited entries, and the
+     rays kernel A renders apart between the two counted);
      kernel A at a size whose warp tiles hang over the frame's edges
      (ODD_SIZE), one frame and 3 frames per launch; kernel A's counting
      launch and its lane-efficiency line;
@@ -67,7 +70,17 @@ Phases (any failure exits non-zero):
      stage split, procedural sky, then the reference-sky source on
      synthetic panoramas), and one short tail_probe_torch.py and
      readback_fps_torch.py run;
- 13. a JSON line per kernel form (each with its bound, from this run's
+ 13. the frame step on the card: Engine(device="cuda") holds its scene,
+     cull table and state there; the golden states at 1280x720 and
+     1920x1080 through step_and_frame's CUDA graph against the goldens and
+     the eager frame; 60 frames (K = 1), 8 batches of K = 8 and 60 preview-2
+     frames by graph replay against the eager device step, frames and
+     states bit for bit; the eager step under sync debug mode "error"; the
+     step + packs' and the whole graph's device time by replay, host ms per
+     call, Engine.run fps with p50/p99, the device-busy share and the
+     host-to-device copies per frame by profiler, the CPU Engine's host
+     half;
+ 14. a JSON line per kernel form (each with its bound, from this run's
      inputs), the card line, and the final status line.
 """
 
@@ -226,6 +239,79 @@ def varied_actions(n):
         time_control=np.int32(1 if i % 2 else 0),
         set_aa_off=np.bool_(i == 2), set_aa_on=np.bool_(i == 5))
         for i in range(n)]
+
+
+def random_actions(n: int, seed: int):
+    """n Actions from a seed that move (with and without run), turn, scrub
+    the clock both ways, pause and play, move the sea, pick time and camera
+    presets (some out of range) and toggle FXAA."""
+    from raytracing_cuda_tpu_torch.sim.actions import Action
+
+    rng = np.random.default_rng(seed)
+
+    def axis(p=1.0):
+        return np.int32(rng.integers(-1, 2) if rng.random() < p else 0)
+
+    def preset(top):
+        return np.int32(rng.integers(0, top) if rng.random() < 0.1 else -1)
+
+    return [Action.idle()._replace(
+        move_side=axis(), move_forward=axis(), move_up=axis(),
+        run=np.bool_(rng.random() < 0.3),
+        mouse_dx=np.float32(rng.normal() * 20),
+        mouse_dy=np.float32(rng.normal() * 10), time_control=axis(0.5),
+        set_play=np.bool_(rng.random() < 0.1),
+        set_pause=np.bool_(rng.random() < 0.1), sea_control=axis(0.3),
+        time_preset=preset(6), cam_preset=preset(3),
+        set_aa_on=np.bool_(rng.random() < 0.2),
+        set_aa_off=np.bool_(rng.random() < 0.2)) for _ in range(n)]
+
+
+# Packs built on the card against packs built on the CPU from the same
+# state: every entry equal but those that pass through sin/cos/tan (the
+# frustum corners, the lights' positions and colours, the light proxy
+# spheres' rows and the bound of the sphere cluster that holds them), which
+# CUDA's and the CPU's trig round differently; those within PACK_TRIG_ULP
+# units in the last place of the largest magnitude of their vector.
+PACK_TRIG_ULP = 16
+
+
+def pack_differences(cpu, dev):
+    """frame_packs built on the CPU and on the card for one state → (the
+    count of entries that differ outside the trig-inherited ones, the
+    largest difference of a trig-inherited entry in the units of
+    PACK_TRIG_ULP)."""
+    from raytracing_cuda_tpu_torch.render import cuda_rt as rt
+
+    coef_c, params_c, _, _, cull_c = cpu
+    coef_d, params_d, cull_d = (t.cpu() for t in (dev[0], dev[1], dev[4]))
+    # the light proxy spheres' rows (flags: is_light * 2 + is_sphere)
+    light = coef_c[:, rt.C_FLAGS] == 3.0
+    trig = [(rt.P_LD, 3), (rt.P_RD, 3), (rt.P_LU, 3), (rt.P_RU, 3),
+            (rt.P_LPOS0, 3), (rt.P_LPOS1, 3), (rt.P_LCOL0, 3),
+            (rt.P_LCOL1, 3), (rt.P_CLUSTERS + 4 * (len(cull_c) - 1), 4)]
+    exact = torch.ones(params_c.shape, dtype=torch.bool)
+    vectors = []
+    for off, n in trig:
+        exact[off:off + n] = False
+        vectors.append((params_c[off:off + n], params_d[off:off + n]))
+    for ch, n in ((rt.C_CENTER, 3), (rt.C_NORMAL, 3), (rt.C_POS2, 1)):
+        for row in torch.nonzero(light).flatten().tolist():
+            vectors.append((coef_c[row, ch:ch + n], coef_d[row, ch:ch + n]))
+    rest = torch.ones(coef_c.shape, dtype=torch.bool)
+    rest[light, rt.C_CENTER:rt.C_POS2 + 1] = False
+    bad = (int((coef_c[rest] != coef_d[rest]).sum())
+           + int((params_c[exact] != params_d[exact]).sum())
+           + int((cull_c != cull_d).sum()))
+    worst = max(float(((a - b).abs().max() / np.spacing(np.float32(max(
+        1.0, float(a.abs().max())))))) for a, b in vectors)
+    return bad, worst
+
+
+def rays_apart(planes_a, planes_b) -> int:
+    """Pixels where two sets of kernel A's 7 planes differ in any plane."""
+    a, b = torch.stack(list(planes_a)), torch.stack(list(planes_b))
+    return int((a != b).any(0).sum())
 
 
 def reset_counts():
@@ -440,10 +526,10 @@ def synthetic_skies(root: str, h: int, w: int) -> str:
     return root
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
 
 
@@ -476,8 +562,9 @@ def main() -> int:
         return 2
     from raytracing_cuda_tpu_torch import _build
     from raytracing_cuda_tpu_torch.app.loop import Engine
+    from raytracing_cuda_tpu_torch.core.types import to_device
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
-    from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+    from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
     from raytracing_cuda_tpu_torch.render.reference import quantize
     from raytracing_cuda_tpu_torch.scene.builders import (
         ISLAND_SPH_CLUSTERS, ISLAND_TRI_CLUSTERS, ISLAND_TRI_SUBS,
@@ -532,13 +619,28 @@ def main() -> int:
     classic_scene, classic_st = classic_env()
     a_err, a_mismatch, b_err = 0.0, 0, 0
     golden_bases, inputs, works = [], {}, {}
+    # the packs as the Engine builds them, on the card, against the same
+    # state's packs built on the CPU
+    on_card = {id(sc): to_device(sc, dev) for sc in (scene, classic_scene)}
+    trig_ulp, apart = 0.0, {}
     for name, kw in [*POSES.items(), ("classic", None)]:
         sc, st, cl = ((classic_scene, classic_st, (None,) * 3) if kw is None
                       else (scene, make_state(**kw), clusters))
-        coef, params, nt, ns, cu = host_packs(sc, st, H, W, None, *cl)
-        coef, params, cu = coef.to(dev), params.to(dev), cu.to(dev)
+        cpu_packs = frame_packs(sc, st, H, W, None, *cl)
+        packs = frame_packs(on_card[id(sc)], sim.state_to(st, dev), H, W,
+                            None, *cl)
+        coef, params, nt, ns, cu = packs
+        bad, worst = pack_differences(cpu_packs, packs)
+        trig_ulp = max(trig_ulp, worst)
+        require(bad == 0 and worst <= PACK_TRIG_ULP,
+                f"{name}: packs built on the card equal the CPU's but for "
+                f"the trig-inherited entries ({bad} others differ; those "
+                f"within {worst:.2f} ulp of {PACK_TRIG_ULP})")
         kern = torch.stack(cuda_rt.raytrace_planes(coef, params, H, W, nt, ns,
                                                    cull=cu))
+        on_cpu_packs = cuda_rt.raytrace_planes(
+            cpu_packs[0].to(dev), cpu_packs[1].to(dev), H, W, nt, ns,
+            cull=cu)
         work = (dict.fromkeys(cuda_rt.WORK_KEYS, 0)
                 if name in ("island_morning", "mountains_day", "worst_pose")
                 else None)
@@ -562,6 +664,9 @@ def main() -> int:
             return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sky)
 
         bk = base_of(kern)
+        # rays whose planes differ, and pixels of the frame before FXAA
+        apart[name] = (rays_apart(kern, on_cpu_packs), int(
+            (base_of(on_cpu_packs) != bk).any(-1).sum()))
         if name in CASES:
             golden_bases.append(bk)
         fk, fp = fx.fxaa(bk), fx.fxaa_torch(bk)
@@ -575,7 +680,7 @@ def main() -> int:
     # kernel A where the last warp tiles hang over the right and bottom
     # edges: one frame per launch, and 3 frames per launch
     oh, ow = ODD_SIZE
-    odd = [host_packs(scene, make_state(**POSES[n]), oh, ow, None, *clusters)
+    odd = [frame_packs(scene, make_state(**POSES[n]), oh, ow, None, *clusters)
            for n in ("island_morning", "mountains_day",
                      "sea_above_everything")]
     odd_coefs = torch.stack([p[0] for p in odd]).to(dev)
@@ -597,6 +702,11 @@ def main() -> int:
             f"kernel A vs plain at {oh}x{ow} (partial warp tiles), K=1 and "
             f"K=3: max|diff| {odd_err}")
 
+    print(f"packs built on the card vs on the CPU at 720p, 13 poses: trig-"
+          f"inherited entries within {trig_ulp:.2f} ulp; between the two "
+          f"packs (kernel A's rays apart, pixels apart before FXAA): "
+          f"{apart} of {H * W} [{card}]", flush=True)
+    report["device_packs"] = {"trig_ulp": trig_ulp, "rays_apart": apart}
     coef, params, nt, ns, cull, bk, kern, base_of = inputs["island_morning"]
     ms_a_pose = {name: cuda_ms(lambda i=inputs[name]: cuda_rt.raytrace_planes(
         i[0], i[1], H, W, i[2], i[3], cull=i[4]), 20)
@@ -656,7 +766,7 @@ def main() -> int:
     st0 = make_state(6.0)
     t0 = time.perf_counter()
     for _ in range(50):
-        host_packs(scene, sim.animate(st0, Action.idle(), 1 / 60), H, W,
+        frame_packs(scene, sim.animate(st0, Action.idle(), 1 / 60), H, W,
                    None, *clusters)
     host_ms = (time.perf_counter() - t0) * 1e3 / 50
     ms_sky = cuda_ms(lambda: base_of(kern), 50)
@@ -709,7 +819,7 @@ def main() -> int:
         sample_sky_packed_pair_batch)
 
     def stacked_packs(states):
-        packs = [host_packs(scene, st, H, W, None, *clusters)
+        packs = [frame_packs(scene, st, H, W, None, *clusters)
                  for st in states]
         return (torch.stack([p[0] for p in packs]).to(dev),
                 torch.stack([p[1] for p in packs]).to(dev))
@@ -1004,7 +1114,8 @@ def main() -> int:
           f"band {graph_a_band:.4f} ms, full frame {graph_a:.4f} ms "
           f"[{card}]", flush=True)
 
-    # render_frame_sharded against the Engine frame, FXAA on and off
+    # render_frame_sharded against the Engine frame, FXAA on and off, from
+    # the Engine's scene on the card (packs built there, as the Engine's)
     mismatch = []
     for name, kw in CASES.items():
         for aa in (True, False):
@@ -1013,7 +1124,7 @@ def main() -> int:
             ref = eng.frame()
             for n, il in ((2, 1), (4, 1), (8, 1), (4, 2)):
                 img = render_frame_sharded(
-                    scene, st, replicate(sky_pack, [dev]), *SKY_SHAPE,
+                    eng.scene, st, replicate(sky_pack, [dev]), *SKY_SHAPE,
                     mesh=[DEVICE] * n, height=H, width=W, interleave=il,
                     tri_clusters=ISLAND_TRI_CLUSTERS,
                     sph_clusters=ISLAND_SPH_CLUSTERS, t_subs=ISLAND_TRI_SUBS)
@@ -1338,7 +1449,7 @@ def main() -> int:
         """Both kernels' full-frame wrappers against their plain versions,
         bit for bit, on the h x w frame of state st → (kernel A's launch,
         its planes, the frame before FXAA)."""
-        coef_h, params_h, nt_, ns_, cull_h = host_packs(scene, st, h, w,
+        coef_h, params_h, nt_, ns_, cull_h = frame_packs(scene, st, h, w,
                                                         None, *clusters)
         coef_d, params_d, cull_d = (t.to(dev) for t in (coef_h, params_h,
                                                         cull_h))
@@ -1364,7 +1475,7 @@ def main() -> int:
         bands (kernel A at row0 of total_h, kernel B with its halo rows),
         against their plain versions bit for bit; the bands assembled must
         equal the whole-frame launches."""
-        packs = [host_packs(scene, st, h, w, None, *clusters)
+        packs = [frame_packs(scene, st, h, w, None, *clusters)
                  for st in states]
         coefs = torch.stack([p[0] for p in packs]).to(dev)
         params_ = torch.stack([p[1] for p in packs]).to(dev)
@@ -1423,9 +1534,10 @@ def main() -> int:
                 f"{name}: 1920x1080 Engine frame vs golden rmse {rm:.5f} "
                 f"off>2 {off:.4%}")
     counts = read_counts()
-    require(counts["raytrace_megakernel"] == 4 and counts["fxaa"] == 3,
-            f"the 1080p frames launched kernel A 4 times and kernel B 3 "
-            f"times (one state has FXAA off): {counts}")
+    require(counts["raytrace_megakernel"] == 4 and counts["fxaa"] == 4,
+            f"the 1080p frames launched kernel A and kernel B 4 times each "
+            f"(the state with FXAA off keeps its base frame by a select on "
+            f"the card): {counts}")
     for name, kw in CASES.items():
         if name != "island_morning":        # that one: stage_ms below
             held_frame(name, 1080, 1920, make_state(**kw))
@@ -1448,9 +1560,9 @@ def main() -> int:
     reset_counts()
     img = eng_480.frame_np()
     counts = read_counts()
-    require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 0,
-            f"the 640x480 frame (FXAA off) launched kernel A once and "
-            f"kernel B never: {counts}")
+    require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 1,
+            f"the 640x480 frame (FXAA off, selected on the card) launched "
+            f"kernel A and kernel B once each: {counts}")
     eng_cpu = Engine(RenderConfig(width=640, height=480,
                                   procedural_sky_shape=SKY_SHAPE),
                      device="cpu")
@@ -1467,7 +1579,7 @@ def main() -> int:
           f"{sizes['640x480']['raytrace']:.4f} (CUDA graph replay), sky + "
           f"quantize {sizes['640x480']['sky_quantize']:.4f} (CUDA events), "
           f"kernel B {sizes['640x480']['fxaa']:.4f} (graph replay; the "
-          f"state has FXAA off, so its frames do not launch it) [{card}]",
+          f"state has FXAA off, so its frames keep the base) [{card}]",
           flush=True)
 
     # the shapes the root scripts of phase 11 hand the kernels:
@@ -1640,12 +1752,14 @@ def main() -> int:
     require(rc == 0 and all(v > 0 for v in dmed.values())
             and dmed["kernel+sky+fxaa"] > dmed["kernel_only"],
             f"worst_pose_decompose_torch: device stages {dmed}")
-    print(f"stage split 720p worst pose: kernel A {dmed['kernel_only']:.4f}, "
+    print(f"stage split 720p worst pose: step + packs "
+          f"{dmed['step+packs']:.4f}, kernel A {dmed['kernel_only']:.4f}, "
           f"+ sky lookup + quantize {dmed['kernel+sky']:.4f}, + kernel B "
-          f"{dmed['kernel+sky+fxaa']:.4f} ms (device time, CUDA graph "
-          f"replay); host half " + ", ".join(
-              f"{k} {v:.4f}" for k, v in hmed.items())
-          + f" ms (host clock) [{card}]", flush=True)
+          f"{dmed['kernel+sky+fxaa']:.4f}, the whole frame "
+          f"{dmed['whole_frame']:.4f} ms (device time, CUDA graph replay); "
+          f"host " + ", ".join(f"{k} {v:.4f}" for k, v in hmed.items())
+          + f" ms (host clock; cpu_* the CPU Engine's host half) [{card}]",
+          flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         sky_dir = synthetic_skies(os.path.join(tmp, "sky"), 512, 1024)
         ref = {}
@@ -1680,8 +1794,192 @@ def main() -> int:
                       "bounds_ms": {a: b[0] for a, b in arm_bounds.items()},
                       "plain_ms": arm_plain_ms}
 
-    # --- 13. report ---
+    # --- 13. the frame step on the card: one CUDA graph per call ---
     phase(13)
+    from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
+    from raytracing_cuda_tpu_torch.utils.timing import (capture_graph,
+                                                        replay_ms)
+
+    geng = Engine(cfg, DEVICE, share_assets_from=eng)
+    require(all(t.is_cuda for t in (*geng.scene, geng.cull,
+                                    *sim.state_tensors(geng.state))),
+            "Engine(device='cuda') holds its scene, cull table and state on "
+            "the card")
+    idle = Action.idle()
+    graph_stats = {}
+    for label, e, gold_dir in (
+            ("1280x720", geng, GOLDEN_DIR),
+            ("1920x1080", geng.resized(1920, 1080),
+             os.path.join(GOLDEN_DIR, "1920x1080"))):
+        e.set_state(make_state(6.0))
+        for _ in range(2):                # eager (the warm-up), the capture
+            e.step_and_frame(idle, 0.0)
+        for name, kw in CASES.items():
+            # an idle step of dt 0 keeps each golden state's clock, sea and
+            # toggles; its yaw is re-wrapped by fmod(yaw + 360, 360)
+            e.set_state(make_state(**kw))
+            reset_counts()
+            img = e.step_and_frame(idle, 0.0)
+            counts = read_counts()
+            eager = e.frame()
+            rm, off = golden_stats(img.cpu().numpy(), load_png(
+                os.path.join(gold_dir, f"{name}.png")))
+            graph_stats[f"golden_{label}_{name}"] = {"rmse": rm,
+                                                     "off_frac": off}
+            require(counts["raytrace_megakernel"] == 1
+                    and counts["fxaa"] == 1 and torch.equal(img, eager)
+                    and rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC,
+                    f"{name}: {label} frame by CUDA graph replay (launches "
+                    f"{counts['raytrace_megakernel']}, {counts['fxaa']}) "
+                    f"equals the eager frame of its state "
+                    f"({torch.equal(img, eager)}) and the golden: rmse "
+                    f"{rm:.5f} off>2 {off:.4%}")
+
+    def graph_vs_eager(e, kind, n, k, seed):
+        """n frames of seeded actions through e's graph, k per call, each
+        call against e._step_render from the same state → (frames and
+        states bit for bit, snapshots unchanged, no frame overwritten)."""
+        acts = random_actions(n, seed)
+        dts = [1 / 60 + 0.01 * (i % 4) for i in range(n)]
+        call = {"frame": lambda a, d: e.step_and_frame(a[0], d[0]),
+                "preview": lambda a, d: e.step_and_frame_preview(a[0], d[0]),
+                "batch": e.step_and_frame_batch}[kind]
+        e.set_state(make_state(9.5))
+        st = sim.clone_state(e.state)
+        same = kept_same = True
+        kept = []
+        for i in range(0, n, k):
+            a, d = acts[i:i + k], dts[i:i + k]
+            before = e.state
+            before_copy = sim.clone_state(before)
+            got = call(a, d)
+            st, want = e._step_render(kind, st,
+                                      e._upload(pack_actions(a, d)))
+            same &= (torch.equal(got, want) and states_equal(e.state, st))
+            kept_same &= states_equal(before, before_copy)
+            kept.append((got, want.clone()))
+        return (same, kept_same,
+                all(torch.equal(g, w) for g, w in kept)
+                and (kind, k) in e._graphs)
+
+    for kind, n, k, e in (
+            ("frame", 60, 1, geng),
+            ("batch", 64, BATCH, geng),
+            ("preview", 60, 1, Engine(dataclasses.replace(cfg, preview=2),
+                                      DEVICE, share_assets_from=eng))):
+        same, snap, kept = graph_vs_eager(e, kind, n, k, seed=21)
+        require(same and snap and kept,
+                f"{kind} (K={k}{', preview 2' if kind == 'preview' else ''})"
+                f": {n} frames by CUDA graph replay equal the eager device "
+                f"step bit for bit, frames and states ({same}); states read "
+                f"before a call unchanged ({snap}); no frame overwritten "
+                f"({kept})")
+
+    # the eager step reads nothing back and copies from no pageable memory
+    vecs = geng._upload(pack_actions(random_actions(BATCH, 22),
+                                     [1 / 60] * BATCH))
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = geng.state
+        for kind in ("frame", "batch"):
+            st, _ = geng._step_render(kind, st,
+                                      vecs if kind == "batch" else vecs[:1])
+        geng.step(idle)
+        geng.step_and_frame(idle)
+        synced = None
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(synced is None, f"the eager device step and a graph replay run "
+            f"under torch.cuda.set_sync_debug_mode('error'): {synced}")
+
+    # the numbers: device time of the step + packs and of the whole graph
+    # (graph replay), host ms per call, the loop, the device-busy share
+    st6 = make_state(6.0)
+    geng.set_state(st6)
+    av = geng._upload(idle.pack(1 / 60)[None])
+    st6_d = geng.state
+    step_packs = capture_graph(
+        lambda: geng._packs(sim.animate_packed(st6_d, av[0])), 10)
+    frame_graph = geng._graphs[("frame", 1)].graph
+    frame_graph.replay()
+    graph_ms = {"step_packs": [], "whole_graph": []}
+    for _ in range(5):                     # in turns
+        graph_ms["step_packs"].append(replay_ms(step_packs, 10))
+        graph_ms["whole_graph"].append(replay_ms(frame_graph, 1, 20))
+    # the SM clock beside the replays: device times move with it
+    clocks = card_line("clocks.sm,clocks.max.sm,power.draw")
+    del step_packs
+    geng.set_state(st6)
+    for _ in range(3):
+        geng.step_and_frame()
+    torch.cuda.synchronize()
+    n_calls = 120
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        geng.step_and_frame()
+    t_host = (time.perf_counter() - t0) * 1e3 / n_calls
+    torch.cuda.synchronize()
+    t_all = (time.perf_counter() - t0) * 1e3 / n_calls
+    run_stats = []
+    for _ in range(2):
+        geng.set_state(st6)
+        run_stats.append(geng.run(300))
+    act = profiled(geng.step_and_frame, 30, ("raytrace_kernel",
+                                             "fxaa_kernel"))
+    require(act is not None, "a torch.profiler trace of 30 graph-path "
+            "frames holds the kernels' device events")
+    top, busy_g, window_g = act
+    htod = sum(n for name, _, n in top if "HtoD" in name)
+    require(htod <= 30, f"at most one host-to-device copy per frame: "
+            f"{htod} in 30 graph-path frames ({[t for t in top if 'HtoD' in t[0]]})")
+    scene_c = build_scene()
+    av_c = av[0].cpu()
+    cull_c = geng.cull.cpu()
+    cpu_half = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            frame_packs(scene_c, sim.animate_packed(st6, av_c), H, W, None,
+                        *clusters, cull_c)
+        cpu_half.append((time.perf_counter() - t0) * 1e3 / 10)
+    gmed = {k: statistics.median(v) for k, v in graph_ms.items()}
+    pct = {}
+    for i, s in enumerate(run_stats):
+        ms = np.array(s.frame_ms)
+        pct[i] = (s.fps, float(np.percentile(ms, 50)),
+                  float(np.percentile(ms, 99)))
+    print(f"graph path 1280x720 island day 6: device ms by graph replay, "
+          f"median of 5: step + packs {gmed['step_packs']:.4f} "
+          f"{graph_ms['step_packs']}, the whole frame graph "
+          f"{gmed['whole_graph']:.4f} {graph_ms['whole_graph']}; SM clock, "
+          f"its max, power draw after them: {clocks} [{card}]", flush=True)
+    print(f"graph path: host ms per step_and_frame call {t_host:.4f} "
+          f"(enqueue, {n_calls} calls), {t_all:.4f} with the device's drain; "
+          f"Engine.run(300) " + "; ".join(
+              f"{f:.2f} fps, frame ms p50 {p50:.4f} p99 {p99:.4f}"
+              for f, p50, p99 in pct.values())
+          + f" (CUDA events) [{card}]", flush=True)
+    print(f"graph path profile of 30 frames: device busy {busy_g:.4f} ms of "
+          f"{window_g:.4f} ms = {busy_g / max(window_g, 1e-9):.2%} "
+          f"(torch.profiler); {htod} host-to-device copies; the CPU "
+          f"Engine's host half (state step + frame_packs, host clock) "
+          f"{statistics.median(cpu_half):.4f} ms {cpu_half} [{card}]",
+          flush=True)
+    for rank, (name, ms_tot, n) in enumerate(top[:8], 1):
+        print(f"  top {rank}: {ms_tot:.4f} ms in {n} calls: {name[:100]}",
+              flush=True)
+    report["graph"] = {"stats": graph_stats, "device_ms": graph_ms,
+                       "host_call_ms": t_host, "host_call_drained_ms": t_all,
+                       "run": pct, "busy_ms": busy_g, "window_ms": window_g,
+                       "htod": htod, "cpu_host_half_ms": cpu_half,
+                       "clocks": clocks}
+
+    # --- 14. report ---
+    phase(14)
     kernels = [
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",

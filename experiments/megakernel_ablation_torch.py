@@ -53,7 +53,7 @@ import torch
 
 from bench_torch import preset_state
 from raytracing_cuda_tpu_torch.render.cuda_rt import raytrace_planes
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
 from raytracing_cuda_tpu_torch.scene.builders import (ISLAND_SPH_CLUSTERS,
                                                       ISLAND_TRI_CLUSTERS,
                                                       ISLAND_TRI_SUBS,
@@ -86,7 +86,7 @@ READINGS = (("shadow sweeps", "full", "noshadow"),
 def pose_packs(day: float, yaw: float, h: int, w: int, device):
     """Kernel A's packs of the island at bench_torch.preset_state(day, yaw)
     on `device` → (coef, params, n_tri_rows, n_sph_rows, cull)."""
-    coef, params, nt, ns, cull = host_packs(
+    coef, params, nt, ns, cull = frame_packs(
         build_scene(), preset_state(day=day, yaw=yaw), h, w, None,
         ISLAND_TRI_CLUSTERS, ISLAND_SPH_CLUSTERS, ISLAND_TRI_SUBS)
     return coef.to(device), params.to(device), nt, ns, cull.to(device)

@@ -1,19 +1,24 @@
 #!/usr/bin/env python
-"""Decompose one frame at a pose: kernel A, the sky stage, kernel B and the
-host half (port of experiments/worst_pose_decompose.py).
+"""Decompose one frame at a pose: the step + packs, kernel A, the sky
+stage, kernel B, and the host's share (port of
+experiments/worst_pose_decompose.py).
 
-Three device stages, each a prefix of the frame's device work on the same
-packs: kernel A alone; kernel A + the sky lookup + quantize (pipeline
-._base); the same + FXAA (kernel B). Each stage's n calls are captured once
-in a CUDA graph, and every rep replays the three graphs in turn; the
-figures are device time by CUDA graph replay, the stage costs the
-differences of their medians. Beside them the host half of a frame, each
-step by the host clock (median of reps of n calls): the state step
-(sim.animate), derive_frame + camera_rays, the packing (host_packs, less
-the derive and camera it runs too), and the upload (the packs into pinned
-memory and onto the card, to the copy's end, as Engine._upload makes it).
-On the CPU (--device cpu) every stage runs on the host and is read by the
-host clock, and the output says so.
+Device stages, each captured once in a CUDA graph of n calls and replayed
+in turns within every rep (device time by CUDA graph replay; the stage
+costs are the differences of their medians): the state step and the packs
+on the device (sim.animate_packed, then pipeline.frame_packs: derive_frame,
+camera_rays, the packing and the cluster bounds); kernel A alone on those
+packs; kernel A + the sky lookup + quantize (pipeline._base); the same +
+FXAA (kernel B, selected by the state's toggle); and the whole frame as
+the Engine's CUDA graph runs it (Engine._step_render: step, packs, kernel
+A, sky, kernel B). Beside them, by the host clock (median of reps of n
+calls): the host time of one Engine.step_and_frame call on the card (the
+graph's replay enqueued, the action vector copied, the frame copied out),
+and the CPU Engine's host half as the old reference, the same code on CPU
+tensors: the state step, derive_frame + camera_rays, and the packing
+(frame_packs less the derive and camera it runs too). On the CPU (--device
+cpu) every stage runs on the host and is read by the host clock, and the
+output says so.
 
 --sky procedural|reference|auto picks the panoramas (reference: the four
 PNGs under --sky-dir, default assets/backgrounds/, point-sampled by
@@ -37,9 +42,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from bench_torch import preset_state
+from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.render.cuda_rt import raytrace_planes
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
-from raytracing_cuda_tpu_torch.render.pipeline import _base, host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import _base, frame_packs
 from raytracing_cuda_tpu_torch.scene.builders import (ISLAND_SPH_CLUSTERS,
                                                       ISLAND_TRI_CLUSTERS,
                                                       ISLAND_TRI_SUBS,
@@ -49,10 +55,12 @@ from raytracing_cuda_tpu_torch.scene.textures import (REFERENCE_BACKGROUNDS,
                                                       pack_sky_all)
 from raytracing_cuda_tpu_torch.sim import state as sim
 from raytracing_cuda_tpu_torch.sim.actions import Action
+from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 from raytracing_cuda_tpu_torch.utils.timing import capture_graph, replay_ms
 
-DEVICE_STAGES = ("kernel_only", "kernel+sky", "kernel+sky+fxaa")
-HOST_STAGES = ("step", "derive+camera", "packing", "upload")
+DEVICE_STAGES = ("step+packs", "kernel_only", "kernel+sky", "kernel+sky+fxaa",
+                 "whole_frame")
+HOST_STAGES = ("engine_call", "cpu_step", "cpu_derive+camera", "cpu_packing")
 
 
 def host_ms(fn, reps: int, n: int) -> list:
@@ -101,26 +109,38 @@ def main(argv=None, report=None) -> int:
         print(f"--sky {args.sky}: {e}", file=sys.stderr)
         return 2
     sky_h, sky_w = texels.shape[1:3]
-    sky_pack = pack_sky_all(torch.from_numpy(texels).to(dev))
+    # the engine's own panoramas are a placeholder: those of --sky replace
+    # them, as the engine reads no other path
+    eng = Engine(RenderConfig(width=w, height=h, sky_source="procedural",
+                              procedural_sky_shape=(8, 8)), dev)
+    eng.sky_pack = eng._sky_packs[eng.device] = pack_sky_all(
+        torch.from_numpy(texels).to(dev))
+    eng.sky_h, eng.sky_w = sky_h, sky_w
     del texels
 
-    scene = build_scene()
-    st = preset_state(day=args.day, yaw=args.yaw)
+    st = sim.state_to(preset_state(day=args.day, yaw=args.yaw), dev)
+    av = eng._upload(Action.idle().pack(1 / 60)[None])
     clusters = (ISLAND_TRI_CLUSTERS, ISLAND_SPH_CLUSTERS, ISLAND_TRI_SUBS)
-    coef, params, nt, ns, cull = host_packs(scene, st, h, w, None, *clusters)
-    coef_d, params_d, cull_d = (t.to(dev) for t in (coef, params, cull))
+    coef, params, nt, ns, cull = eng._packs(st)
+
+    def step_packs():
+        return eng._packs(sim.animate_packed(st, av[0]))
 
     def kernel_only():
-        return raytrace_planes(coef_d, params_d, h, w, nt, ns, cull=cull_d)
+        return raytrace_planes(coef, params, h, w, nt, ns, cull=cull)
 
     def kernel_sky():
-        return _base(coef_d, params_d, nt, ns, sky_pack, sky_h, sky_w, st, h,
-                     w, cull_d)
+        return _base(coef, params, nt, ns, eng.sky_pack, sky_h, sky_w, st, h,
+                     w, cull)
 
     def kernel_sky_fxaa():
-        return apply_fxaa(kernel_sky(), bool(st.aa))
+        return apply_fxaa(kernel_sky(), st.aa)
 
-    fns = dict(zip(DEVICE_STAGES, (kernel_only, kernel_sky, kernel_sky_fxaa)))
+    def whole_frame():
+        return eng._step_render("frame", st, av)
+
+    fns = dict(zip(DEVICE_STAGES, (step_packs, kernel_only, kernel_sky,
+                                   kernel_sky_fxaa, whole_frame)))
     dev_ms = {name: [] for name in DEVICE_STAGES}
     if cuda:
         dev_clock = "device ms per call, CUDA graph replay"
@@ -136,32 +156,27 @@ def main(argv=None, report=None) -> int:
         for k, fn in fns.items():
             dev_ms[k] = host_ms(fn, args.reps, args.n)
 
-    # the host half of a frame, step by step
+    # the host's share: one Engine call (the graph's replay on a card),
+    # then the CPU Engine's host half, the old reference
     aspect = w / h
-    n_packs = coef.numel()
-    if cuda:
-        pinned = torch.empty(n_packs + params.numel(), pin_memory=True)
-        dev_buf = torch.empty(pinned.shape, dtype=pinned.dtype, device=dev)
-
-    def upload():
-        if cuda:
-            pinned[:n_packs] = coef.reshape(-1)
-            pinned[n_packs:] = params.reshape(-1)
-            dev_buf.copy_(pinned, non_blocking=True)
-            torch.cuda.synchronize(dev)
-        else:
-            torch.cat([coef.reshape(-1), params.reshape(-1)])
-
-    derive = host_ms(lambda: (sim.derive_frame(scene, st),
-                              sim.camera_rays(st.cam, aspect)),
+    eng.set_state(st)
+    eng.step_and_frame()          # eager: the warm-up; the next captures
+    host = {"engine_call": host_ms(eng.step_and_frame, args.reps, args.n)}
+    scene_c = build_scene()
+    st_c = preset_state(day=args.day, yaw=args.yaw)
+    av_c = av[0].cpu()
+    derive = host_ms(lambda: (sim.derive_frame(scene_c, st_c),
+                              sim.camera_rays(st_c.cam, aspect)),
                      args.reps, args.n)
-    packs = host_ms(lambda: host_packs(scene, st, h, w, None, *clusters),
+    packs = host_ms(lambda: frame_packs(scene_c, st_c, h, w, None, *clusters,
+                                        cull.cpu()),
                     args.reps, args.n)
-    host = {"step": host_ms(lambda: sim.animate(st, Action.idle(), 1 / 60),
-                            args.reps, args.n),
-            "derive+camera": derive,
-            "packing": [p - d for p, d in zip(packs, derive)],
-            "upload": host_ms(upload, args.reps, args.n)}
+    host.update({"cpu_step": host_ms(lambda: sim.animate_packed(st_c, av_c),
+                                     args.reps, args.n),
+                 "cpu_derive+camera": derive,
+                 "cpu_packing": [p - d for p, d in zip(packs, derive)]})
+    if cuda:
+        torch.cuda.synchronize(dev)
 
     print(f"frame at day {args.day} yaw {args.yaw}, {w}x{h}, on {dev} "
           f"({card}); sky {args.sky} {sky_h}x{sky_w}; median of "
@@ -170,13 +185,16 @@ def main(argv=None, report=None) -> int:
     for k in DEVICE_STAGES:
         print(f"{k}: {med[k]:.4f} ms [{', '.join(f'{x:.4f}' for x in dev_ms[k])}]"
               f" ({dev_clock})", flush=True)
-    print(f"stages: kernel A {med['kernel_only']:.4f}, sky lookup + quantize "
+    print(f"stages: step + packs {med['step+packs']:.4f}, kernel A "
+          f"{med['kernel_only']:.4f}, sky lookup + quantize "
           f"{med['kernel+sky'] - med['kernel_only']:+.4f}, kernel B "
-          f"{med['kernel+sky+fxaa'] - med['kernel+sky']:+.4f} ms "
-          f"(differences of the medians; {dev_clock})", flush=True)
+          f"{med['kernel+sky+fxaa'] - med['kernel+sky']:+.4f}; the whole "
+          f"frame {med['whole_frame']:.4f} ms (differences of the medians; "
+          f"{dev_clock})", flush=True)
     hmed = {k: statistics.median(v) for k, v in host.items()}
-    print("host half: " + ", ".join(f"{k} {hmed[k]:.4f}" for k in HOST_STAGES)
-          + f" ms; sum {sum(hmed.values()):.4f} ms (host clock)", flush=True)
+    print("host: " + ", ".join(f"{k} {hmed[k]:.4f}" for k in HOST_STAGES)
+          + " ms (host clock; engine_call on " + str(dev) + ", the cpu_* "
+          "rows the CPU Engine's host half)", flush=True)
     if report is not None:
         report.update(device=card, device_clock=dev_clock, device_ms=dev_ms,
                       host_ms=host, sky=(args.sky, sky_h, sky_w))

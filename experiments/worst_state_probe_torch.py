@@ -30,7 +30,7 @@ import torch
 from bench_torch import time_frames
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.render.cuda_rt import raytrace_planes
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
 from raytracing_cuda_tpu_torch.sim import state as sim
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 from raytracing_cuda_tpu_torch.utils.timing import graph_device_ms
@@ -52,7 +52,7 @@ def pose_state(day: float, yaw: float, pitch: float = PITCH):
 def kernel_ms(eng: Engine, state, reps: int = 10) -> float:
     """The megakernel's device ms per launch on this state's packs."""
     c = eng.config
-    coef, params, nt, ns, cull = host_packs(
+    coef, params, nt, ns, cull = frame_packs(
         eng.scene, state, c.height, c.width, c.aspect, eng.tri_clusters,
         eng.sph_clusters, eng.tri_subs)
     coef, params, cull = (v.to(eng.device) for v in (coef, params, cull))

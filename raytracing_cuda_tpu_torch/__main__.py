@@ -205,15 +205,17 @@ def build_state(args, default_state):
 
         st = load_state(args.state)
     needs_settle = not args.state
+    dev = st.day_time.device
     if args.day is not None:
-        st = st._replace(day_time=torch.tensor(np.float32(args.day)))
+        st = st._replace(day_time=torch.tensor(np.float32(args.day),
+                                               device=dev))
         needs_settle = True
     if args.cam is not None:
         st = sim.apply_controls(
             st, Action.idle()._replace(cam_preset=np.int32(args.cam)), 0.0)
         needs_settle = True
     if args.no_aa:
-        st = st._replace(aa=torch.tensor(False))
+        st = st._replace(aa=torch.tensor(False, device=dev))
     return sim.settle(st) if needs_settle else st
 
 

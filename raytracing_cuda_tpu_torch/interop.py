@@ -42,8 +42,10 @@ def state_from_numpy(fields) -> FrameState:
 
 
 def state_to_numpy(state: FrameState) -> dict:
-    """FrameState → dict of numpy arrays with the camera as a nested dict."""
-    out = {k: v.numpy().copy() for k, v in state._asdict().items()
+    """FrameState (on any device) → dict of numpy arrays with the camera as
+    a nested dict."""
+    out = {k: v.cpu().numpy().copy() for k, v in state._asdict().items()
            if k != "cam"}
-    out["cam"] = {k: v.numpy().copy() for k, v in state.cam._asdict().items()}
+    out["cam"] = {k: v.cpu().numpy().copy()
+                  for k, v in state.cam._asdict().items()}
     return out

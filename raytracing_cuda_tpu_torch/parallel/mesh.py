@@ -10,7 +10,8 @@ process. A device may repeat: ["cpu"] * n stands in for the JAX tests'
 virtual CPU devices, ["cuda:0"] * n runs n bands one after another on one
 card.
 
-The host derives and packs the frame once. Global chunk c of the frame's
+The frame is derived and packed once, on the device of the scene (the
+Engine's), and the packs go to each band's device. Global chunk c of the frame's
 rows runs on its device: kernel A at row offset c * rows, then the flat
 pair sky lookup and quantize. The last row of chunk c - 1 and the first row
 of chunk c + 1 then move to chunk c's device (zeros at the frame's top and
@@ -32,15 +33,16 @@ from __future__ import annotations
 
 import torch
 
+from raytracing_cuda_tpu_torch.core.math3d import true_div
 from raytracing_cuda_tpu_torch.core.types import Scene, to_device
 from raytracing_cuda_tpu_torch.render.fast import render_base_image_fast
 from raytracing_cuda_tpu_torch.render.fxaa import fxaa_batch, fxaa_ext
 from raytracing_cuda_tpu_torch.render.pipeline import (PLAIN_RENDERERS,
                                                        bases_from_packs,
-                                                       host_packs)
+                                                       frame_packs)
 from raytracing_cuda_tpu_torch.scene.textures import blend_sky
 from raytracing_cuda_tpu_torch.sim.state import (FrameState, camera_rays,
-                                                 derive_frame)
+                                                 derive_frame, state_to)
 
 
 def as_device(d) -> torch.device:
@@ -117,9 +119,9 @@ def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
 
     coefs (K, n, C) and params (K, P) are the frames' packs (batch_packs);
     sky_packs maps every device of mesh to its copy of the static sky
-    stack; aa[k] (default: state k's toggle) says whether frame k is
-    filtered; cull is the packs' cull table (copied to each device, read
-    by the CUDA kernel only). Chunk c runs on mesh[c % n], so device d
+    stack; aa, a (K,) bool tensor (default: the states' toggles), says
+    whether frame k is filtered; cull is the packs' cull table (copied to
+    each device, read by the CUDA kernel only). Chunk c runs on mesh[c % n], so device d
     renders chunks d, d + n, … (`interleave` of them; contiguous bands at
     1). The body of
     band_shard_fn (mesh.py:68-161), with the K frames of a frame group in
@@ -129,7 +131,8 @@ def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
     n = len(mesh)
     sub = band_rows(height, n, interleave)
     chunks = n * interleave
-    aa = [bool(st.aa) for st in states] if aa is None else list(aa)
+    if aa is None:
+        aa = torch.stack([st.aa for st in states])
     packs = {d: (coefs.to(d), params.to(d),
                  None if cull is None else cull.to(d))
              for d in dict.fromkeys(mesh)}
@@ -152,10 +155,9 @@ def filter_bands(bases, aa, device, sub: int, height: int) -> torch.Tensor:
     on `device`: the halo exchange by global chunk index, then FXAA on
     each chunk (a whole frame, with no halo rows, where there is one
     chunk); a frame whose aa[k] is off keeps its base rows
-    (mesh.py:155-159)."""
+    (mesh.py:155-159). aa: a (K,) bool tensor, selected on each chunk's
+    device, so the toggles are never read back to the host."""
     chunks = len(bases)
-    if not any(aa):
-        return torch.cat([b.to(device) for b in bases], dim=1)
     outs = []
     for c, base in enumerate(bases):
         dev = base.device
@@ -169,33 +171,32 @@ def filter_bands(bases, aa, device, sub: int, height: int) -> torch.Tensor:
                    if c < chunks - 1 else zero)
             out = fxaa_ext(torch.cat([top, base, bot], dim=1), c * sub,
                            height)
-        for k, on in enumerate(aa):
-            if not on:
-                out[k] = base[k]
-        outs.append(out.to(device, non_blocking=True))
+        on = aa.to(dev)[:, None, None, None]
+        outs.append(torch.where(on, out, base).to(device, non_blocking=True))
     return torch.cat(outs, dim=1)
 
 
 def render_bands_plain(scene: Scene, state: FrameState,
                        sky_texels: torch.Tensor, *, mesh, height: int,
                        width: int, chunk: int = 32768,
-                       aspect: float | None = None, aa: bool = True,
+                       aspect: float | None = None, aa=True,
                        interleave: int = 1) -> torch.Tensor:
     """One frame of the `fast` and `oracle` paths in row bands over mesh →
     (height, width, 3) uint8 on mesh[0]: the sky blended once on the device
     of `sky_texels` and copied to each device of mesh, chunk c rendered by
     render_base_image_fast at row offset c * rows on mesh[c % n], then
-    filter_bands. The non-kernel branch of band_shard_fn
-    (mesh.py:115-118)."""
+    filter_bands. aa: the FXAA toggle, a bool or a 0-d bool tensor. The
+    non-kernel branch of band_shard_fn (mesh.py:115-118)."""
     mesh = as_mesh(mesh)
     n = len(mesh)
     sub = band_rows(height, n, interleave)
     if aspect is None:
         aspect = width / height
+    state = state_to(state, scene.color.device)
     scene_f, lights, ambient = derive_frame(scene, state)
     rays = camera_rays(state.cam, aspect)
     blended = replicate(blend_sky(sky_texels, state.sky_vars), mesh)
-    day_frac = state.day_time / 24.0
+    day_frac = true_div(state.day_time, 24.0)
     frame = {d: (to_device(scene_f, d), to_device(lights, d), ambient.to(d),
                  to_device(rays, d)) for d in blended}
     bases = []
@@ -206,7 +207,8 @@ def render_bands_plain(scene: Scene, state: FrameState,
             scene_d, lights_d, ambient_d, blended[dev], day_frac, rays_d,
             sub, width, row0=c * sub, total_height=height,
             chunk=chunk)[None])
-    return filter_bands(bases, [aa], mesh[0], sub, height)[0]
+    return filter_bands(bases, torch.as_tensor(aa).reshape(1), mesh[0], sub,
+                        height)[0]
 
 
 def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
@@ -230,18 +232,19 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
     (mesh.py:200-209)."""
     mesh = as_mesh(mesh)
     band_rows(height, len(mesh), interleave)
-    aa = bool(state.aa) if fxaa_static is None else bool(fxaa_static)
+    aa = (state.aa if fxaa_static is None
+          else torch.tensor(bool(fxaa_static))).reshape(1)
     if path in PLAIN_RENDERERS:
         return render_bands_plain(scene, state, sky_texels, mesh=mesh,
                                   height=height, width=width, chunk=chunk,
-                                  aspect=aspect, aa=aa,
+                                  aspect=aspect, aa=aa[0],
                                   interleave=interleave)
     if path != "auto":
         raise ValueError(f"path must be 'auto', 'fast' or 'oracle', got "
                          f"{path!r}")
-    coef, params, nt, ns, cull = host_packs(scene, state, height, width,
-                                            aspect, tri_clusters,
-                                            sph_clusters, t_subs)
+    coef, params, nt, ns, cull = frame_packs(scene, state, height, width,
+                                             aspect, tri_clusters,
+                                             sph_clusters, t_subs)
     return render_bands(coef[None], params[None], nt, ns, [state], sky_packs,
                         sky_h, sky_w, mesh=mesh, height=height, width=width,
-                        interleave=interleave, aa=[aa], cull=cull)[0]
+                        interleave=interleave, aa=aa, cull=cull)[0]

@@ -1,4 +1,4 @@
-"""Raytracing megakernel: host packing, CUDA wrapper and plain version
+"""Raytracing megakernel: packing, CUDA wrapper and plain version
 (port of raytracing_cuda_tpu/render/pallas_rt.py).
 
 The TPU kernel (`pallas_rt._make_kernel`, launched at pallas_rt.py:1151)
@@ -7,18 +7,19 @@ culls. On the GPU the kernel (csrc/raytrace.cu) traces one pixel per
 thread, as the reference does (kernel.cu:228-259), and culls per ray: each
 ray tests only the rows under the cluster bounds it can reach (`reach`).
 
-Host side: the scene is packed into one (N_OBJ_PAD, N_CHANNELS) float32
-coefficient table (slot 0 = sea plane, then padded triangle clusters, then
+Packing, on the scene's device (the card's, in the Engine): the scene is
+packed into one (N_OBJ_PAD, N_CHANNELS) float32 coefficient table (slot 0 = sea plane, then padded triangle clusters, then
 padded sphere clusters) and a (N_PARAMS,) float32 params vector — the same
 channel and slot maps as the JAX package, minus the TPU's middle axis.
 `cull_table` lists the rows under each cull bound of the params vector;
-pipeline.host_packs builds it beside the bounds.
+it depends only on the scene's layout, so the Engine builds it once per
+scene (pipeline.frame_packs builds it beside the bounds otherwise).
 
 `raytrace_planes` (one frame) and `raytrace_planes_batch` (K frames in one
 launch) dispatch on the device of their inputs: a CPU tensor runs the plain
 PyTorch version (brute force over every row, which the culls leave
 bit-identical), a CUDA tensor launches the kernel (or raises) and needs the
-cull table host_packs returns, `cull=`. They return 7 (H, W), resp.
+cull table frame_packs returns, `cull=`. They return 7 (H, W), resp.
 (K, H, W), float32 planes: hit-path RGB, miss weight, miss direction xyz.
 `raytrace_planes_count` is the kernel's counting launch (chip_smoke.py and
 the card tests only).
@@ -196,13 +197,15 @@ def pack_scene(scene: Scene, tri_clusters=None, sph_clusters=None):
     s_pad = sum(s_pads)
     n_pad = _round_up(1 + t_pad + s_pad, 8)
 
+    dev = scene.color.device
+
     def zeros(n, c):
-        return torch.zeros((n, c), dtype=f32)
+        return torch.zeros((n, c), dtype=f32, device=dev)
 
     v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
     n = _cross_fused(e1, e2)
     tg = scene.tri_gidx.long()
-    ones_t = torch.ones((T, 1), dtype=f32)
+    ones_t = torch.ones((T, 1), dtype=f32, device=dev)
     tri_rows = torch.cat([
         _col(scene.color[tg]), _col(scene.shine[tg]),
         _col(scene.specular[tg]), _col(scene.mirror[tg]),
@@ -219,7 +222,7 @@ def pack_scene(scene: Scene, tri_clusters=None, sph_clusters=None):
     sg = scene.sph_gidx.long()
     pos = scene.sph_pos
     is_light = _col(scene.is_light[sg])
-    ones_s = torch.ones((S, 1), dtype=f32)
+    ones_s = torch.ones((S, 1), dtype=f32, device=dev)
     sph_rows = torch.cat([
         _col(scene.color[sg]), _col(scene.shine[sg]),
         _col(scene.specular[sg]), _col(scene.mirror[sg]),
@@ -236,13 +239,15 @@ def pack_scene(scene: Scene, tri_clusters=None, sph_clusters=None):
         _col(scene.specular[0:1]), _col(scene.mirror[0:1]), zeros(1, 2),
         zeros(1, 3), _col(scene.plane_normal[None, :]),
         zeros(1, 21),
-        torch.ones((1, 2), dtype=f32),                 # valid, blocks
+        torch.ones((1, 2), dtype=f32, device=dev),     # valid, blocks
         zeros(1, N_CHANNELS - C_GIDX),                 # gidx = 0
     ], dim=1)
 
+    # fill_ writes a Python number on the device: an indexed assignment
+    # copies it from the host, which a CUDA graph cannot capture
     pad_row = zeros(1, N_CHANNELS)
-    pad_row[0, C_GIDX] = 1e9
-    pad_row[0, C_R2] = -1.0
+    pad_row[:, C_GIDX].fill_(1e9)
+    pad_row[:, C_R2].fill_(-1.0)
     parts = [pl_row]
     off = 0
     for cnt, pad in zip(list(tri_clusters) if tri_clusters else [T], pads):
@@ -312,33 +317,38 @@ def cull_groups(n_triangles: int, n_spheres: int, tri_clusters=None,
 
 
 def cull_table(coef, groups) -> torch.Tensor:
-    """The kernel's cull groups of a packed table → (G, 3) int32 on the
-    host: per group of `groups` (cull_groups), its first row, its row count
-    and 1 where one of its rows blocks shadow rays (coef's C_BLOCKS: every
-    triangle, a sphere that is not a light). host_packs builds it beside
-    the bounds, from the same cluster arguments."""
-    rows = np.asarray(groups, dtype=np.int64).reshape(-1, 2)
+    """The kernel's cull groups of a packed table → (G, 3) int32 on coef's
+    device: per group of `groups` (cull_groups), its first row, its row
+    count and 1 where one of its rows blocks shadow rays (coef's C_BLOCKS:
+    every triangle, a sphere that is not a light). It depends only on the
+    scene's layout, not on the frame; frame_packs builds it beside the
+    bounds, from the same cluster arguments."""
+    rows = torch.tensor(groups, dtype=torch.int64).reshape(-1, 2).to(
+        coef.device)
     # blocking rows before each row: a group blocks where the count grows
-    before = np.concatenate([[0], np.cumsum(coef[:, C_BLOCKS].numpy() > 0)])
+    before = torch.cat([torch.zeros(1, dtype=torch.int64, device=coef.device),
+                        torch.cumsum((coef[:, C_BLOCKS] > 0).to(torch.int64),
+                                     0)])
     blocks = before[rows.sum(1)] > before[rows[:, 0]]
-    return torch.from_numpy(np.column_stack([rows, blocks]).astype(np.int32))
+    return torch.cat([rows, blocks[:, None]], dim=1).to(torch.int32)
 
 
 def pack_params(cam_rays: CameraRays, lights: Lights, ambient, sea_y,
-                row0=0):
-    """The (N_PARAMS,) float32 params vector (cluster slots left zero)."""
-    p = torch.zeros((N_PARAMS,), dtype=f32)
+                row0: int = 0):
+    """The (N_PARAMS,) float32 params vector (cluster slots left zero), on
+    the device of the camera rays."""
+    p = torch.zeros((N_PARAMS,), dtype=f32, device=cam_rays.pos.device)
     segs = [
         (P_CAMPOS, cam_rays.pos), (P_LD, cam_rays.LD), (P_RD, cam_rays.RD),
         (P_LU, cam_rays.LU), (P_RU, cam_rays.RU),
         (P_LPOS0, lights.pos[0]), (P_LPOS1, lights.pos[1]),
         (P_LCOL0, lights.color[0]), (P_LCOL1, lights.color[1]),
-        (P_LINT, lights.intensity), (P_AMBIENT, ambient),
-        (P_SEAY, sea_y), (P_ROW0, row0),
+        (P_LINT, lights.intensity), (P_AMBIENT, ambient), (P_SEAY, sea_y),
     ]
     for off, v in segs:
-        v = torch.as_tensor(v, dtype=f32).reshape(-1)
+        v = v.reshape(-1)
         p[off:off + v.numel()] = v
+    p[P_ROW0:P_ROW0 + 1].fill_(row0)
     return p
 
 
@@ -773,7 +783,7 @@ def _check_cull(cull, device):
     """The CUDA path's cull table: required, (G, 3) int32 on `device`."""
     if cull is None:
         raise ValueError("the raytrace kernel needs the scene's cull table "
-                         "(cull=, the one host_packs returns); it tests only "
+                         "(cull=, the one frame_packs returns); it tests only "
                          "the rows of the groups it is given")
     if (not isinstance(cull, torch.Tensor) or cull.dtype != torch.int32
             or cull.ndim != 2 or cull.shape[1] != 3
@@ -854,7 +864,7 @@ def raytrace_planes_batch(coefs, params, H: int, W: int, n_tri_rows: int,
     run raytrace_planes_batch_torch (cull is not read); CUDA tensors launch
     csrc/raytrace.cu once with the frame in the grid (replaces
     pallas_rt.py:1151 with grid (K, H/TH, W/TW)), culling by `cull`, the
-    cull table host_packs returns, on the same device, and count one launch
+    cull table frame_packs returns, on the same device, and count one launch
     and K frames. A diagnostic arm (`ablate`, one of ARMS_ON_CARD after
     parse_ablate) launches csrc/raytrace_arms.cu and counts on
     `arm_launches` only.
@@ -888,7 +898,7 @@ def raytrace_planes(coef, params, H: int, W: int, n_tri_rows: int,
 
     The K = 1 call of the batch kernel (as pallas_rt.py:1174-1189). CPU
     tensors run raytrace_planes_torch (cull is not read); CUDA tensors
-    launch csrc/raytrace.cu with `cull`, the cull table host_packs returns,
+    launch csrc/raytrace.cu with `cull`, the cull table frame_packs returns,
     on the same device, and count the launch on this wrapper. row0/total_h
     place an H-row band inside a total_h-row frame. `ablate` as in
     raytrace_planes_batch (counted on `arm_launches`).

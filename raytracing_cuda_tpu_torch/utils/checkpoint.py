@@ -4,7 +4,9 @@ checkpoint.py).
 The whole FrameState (camera pose, clock, sea level, FXAA flag, sky
 weights) serialises to a small JSON document in the JAX package's
 `state-v1` format, so a state saved by either package loads in the other
-and round-trips exactly (float32 values survive JSON's doubles).
+and round-trips exactly (float32 values survive JSON's doubles). A state
+on a card is read back to the host to be saved; a loaded state goes to the
+device asked for.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from raytracing_cuda_tpu_torch.core.types import Camera
-from raytracing_cuda_tpu_torch.sim.state import FrameState
+from raytracing_cuda_tpu_torch.sim.state import FrameState, state_to
 
 FORMAT = "raytracing_cuda_tpu/state-v1"
 
@@ -25,7 +27,7 @@ def state_to_dict(state: FrameState) -> dict:
     return {
         "format": FORMAT,
         "camera": {
-            "pos": np.asarray(c.pos).tolist(),
+            "pos": c.pos.tolist(),
             "hor_angle": float(c.hor_angle),
             "ver_angle": float(c.ver_angle),
             "fov": float(c.fov),
@@ -34,8 +36,8 @@ def state_to_dict(state: FrameState) -> dict:
         "play": bool(state.play),
         "sea_y": float(state.sea_y),
         "aa": bool(state.aa),
-        "sky_vars": np.asarray(state.sky_vars).tolist(),
-        "recolor_vars": np.asarray(state.recolor_vars).tolist(),
+        "sky_vars": state.sky_vars.tolist(),
+        "recolor_vars": state.recolor_vars.tolist(),
     }
 
 
@@ -81,6 +83,7 @@ def save_state(state: FrameState, path: str) -> None:
         json.dump(state_to_dict(state), f, indent=2)
 
 
-def load_state(path: str) -> FrameState:
+def load_state(path: str, device="cpu") -> FrameState:
+    """The state saved at `path`, on `device`."""
     with open(path) as f:
-        return state_from_dict(json.load(f))
+        return state_to(state_from_dict(json.load(f)), device)

@@ -38,7 +38,7 @@ from raytracing_cuda_tpu.scene import textures as jtx
 from raytracing_cuda_tpu.sim import state as jsim
 from raytracing_cuda_tpu_torch import interop
 from raytracing_cuda_tpu_torch.render import cuda_rt as trt
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.scene import textures as ttx
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
@@ -86,7 +86,7 @@ def jax_planes(pose: str, arm: str) -> np.ndarray:
 def packs(pose: str):
     """The port's packs of a pose at H x W, from the JAX state."""
     st = interop.state_from_numpy(jax_fields(make_state(**CASES[pose])))
-    return host_packs(tb.build_scene(), st, H, W, None,
+    return frame_packs(tb.build_scene(), st, H, W, None,
                       tb.ISLAND_TRI_CLUSTERS, tb.ISLAND_SPH_CLUSTERS,
                       tb.ISLAND_TRI_SUBS)
 
@@ -266,7 +266,8 @@ def test_decompose_probe_on_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     for stage in worst_pose_decompose_torch.DEVICE_STAGES:
         assert f"\n{stage}: " in out
-    assert "host half: step" in out and "upload" in out
+    for stage in worst_pose_decompose_torch.HOST_STAGES:
+        assert f" {stage} " in out.split("\nhost: ")[1]
     assert report["sky"] == ("procedural", 32, 64)
     assert worst_pose_decompose_torch.main(
         [*small, "--sky", "reference", "--sky-dir",

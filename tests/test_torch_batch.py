@@ -31,7 +31,7 @@ from chip_smoke import GOLDEN_OFF_FRAC, GOLDEN_RMSE, golden_stats
 from raytracing_cuda_tpu_torch import _build, interop
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
-from raytracing_cuda_tpu_torch.render.pipeline import (host_packs,
+from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
                                                        render_frames_batch)
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim import state as tsim
@@ -134,7 +134,7 @@ def test_fxaa_off_frame_is_the_base_frame(port_batch):
 
 def batch_packs_of(states, h, w):
     scene = tb.build_scene()
-    packs = [host_packs(scene, st, h, w, None, tb.ISLAND_TRI_CLUSTERS,
+    packs = [frame_packs(scene, st, h, w, None, tb.ISLAND_TRI_CLUSTERS,
                         tb.ISLAND_SPH_CLUSTERS) for st in states]
     return (torch.stack([p[0] for p in packs]),
             torch.stack([p[1] for p in packs]), packs[0][2], packs[0][3])

@@ -16,20 +16,25 @@ plain version does not read: the culls must leave every plane bit for bit.
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASES, EXTREME, GOLDEN_OFF_FRAC, GOLDEN_RMSE, POSES,
-                        golden_stats, halo_bands, make_state, states_equal,
-                        varied_actions)
+from chip_smoke import (CASES, EXTREME, GOLDEN_OFF_FRAC, GOLDEN_RMSE,
+                        PACK_TRIG_ULP, POSES, golden_stats, halo_bands,
+                        make_state, pack_differences, random_actions,
+                        rays_apart, states_equal, varied_actions)
 from raytracing_cuda_tpu_torch import __main__ as cli
 from raytracing_cuda_tpu_torch.app.loop import Engine
+from raytracing_cuda_tpu_torch.core.types import to_device
 from raytracing_cuda_tpu_torch.parallel.mesh import (render_frame_sharded,
                                                      replicate)
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
+                                                       pack_actions)
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
@@ -68,7 +73,7 @@ def _packs(name, dev, h=H, w=W):
     """(coef, params, n_tri_rows, n_sph_rows, cull table) on dev, for a
     frame of h x w."""
     scene, st, clusters = _scene_state(name)
-    coef, params, nt, ns, cull = host_packs(scene, st, h, w, None,
+    coef, params, nt, ns, cull = frame_packs(scene, st, h, w, None,
                                             *clusters)
     return coef.to(dev), params.to(dev), nt, ns, cull.to(dev)
 
@@ -288,7 +293,7 @@ def _batch_packs(dev, n=3):
     st = make_state(6.0)
     states = [make_state(**CASES[c]) for c in sorted(CASES)][:n - 1] + [
         tsim.animate(st, varied_actions(2)[0], 0.5)]
-    packs = [host_packs(scene, s, H, W, None, *ISLAND) for s in states]
+    packs = [frame_packs(scene, s, H, W, None, *ISLAND) for s in states]
     return (torch.stack([p[0] for p in packs]).to(dev),
             torch.stack([p[1] for p in packs]).to(dev), packs[0][2],
             packs[0][3], packs[0][4].to(dev))
@@ -533,3 +538,146 @@ def test_readback_returns_each_frame_one_late(dev):
     ring.flush()
     assert ring.submit(big.frame()) is None
     assert ring.flush().shape == (2 * H, 2 * W, 3)
+
+
+# --- the frame step on the card: device packs, the CUDA graph ---
+
+
+def test_engine_keeps_scene_state_and_cull_table_on_the_card(dev):
+    eng = small_engine("cuda")
+    assert all(t.is_cuda for t in eng.scene) and eng.cull.is_cuda
+    eng.set_state(make_state(6.0))
+    for _ in range(3):                   # eager, capture, replay
+        eng.step_and_frame()
+    assert all(t.is_cuda for t in tsim.state_tensors(eng.state))
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["worst_pose", "classic"]
+                         + sorted(EXTREME))
+def test_device_packs_equal_cpu_packs_but_trig(dev, name):
+    """Packs built on the card equal the CPU's but for the entries that
+    pass through sin/cos/tan, within PACK_TRIG_ULP; kernel A on the card's
+    packs equals its plain version bit for bit, and the rays the trig
+    ulps move are reported."""
+    scene, st, clusters = _scene_state(name)
+    cpu = frame_packs(scene, st, H, W, None, *clusters)
+    packs = frame_packs(to_device(scene, dev), tsim.state_to(st, dev), H, W,
+                        None, *clusters)
+    assert all(t.is_cuda for t in (packs[0], packs[1], packs[4]))
+    bad, worst = pack_differences(cpu, packs)
+    assert bad == 0 and worst <= PACK_TRIG_ULP, (bad, worst)
+    coef, params, nt, ns, cull = packs
+    kern = cuda_rt.raytrace_planes(coef, params, H, W, nt, ns, cull=cull)
+    plain = cuda_rt.raytrace_planes_torch(coef, params, H, W, nt, ns)
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    on_cpu_packs = cuda_rt.raytrace_planes(
+        cpu[0].to(dev), cpu[1].to(dev), H, W, nt, ns, cull=cull)
+    print(f"{name}: trig entries within {worst:.2f} ulp; rays apart from "
+          f"the CPU packs' {rays_apart(kern, on_cpu_packs)} of {H * W}")
+
+
+@pytest.mark.parametrize("kind", ["frame", "batch", "preview"])
+def test_graph_replay_equals_eager_device_step(dev, kind):
+    """Over 60 frames (64 in batches of 8) of seeded actions, every call
+    after the first replays the Engine's CUDA graph; each equals the same
+    device step run eagerly from the same state (Engine._step_render),
+    frames and states bit for bit. A state read before a call is unchanged
+    after it, and no frame returned is overwritten by a later call."""
+    k = 8 if kind == "batch" else 1
+    eng = small_engine("cuda", preview=2 if kind == "preview" else 1)
+    acts = random_actions(64 if k > 1 else 60, seed=5)
+    dts = [0.02 + 0.01 * (i % 5) for i in range(len(acts))]
+    call = {"frame": lambda a, d: eng.step_and_frame(a[0], d[0]),
+            "preview": lambda a, d: eng.step_and_frame_preview(a[0], d[0]),
+            "batch": eng.step_and_frame_batch}[kind]
+    st = tsim.clone_state(eng.state)
+    kept = []
+    for i in range(0, len(acts), k):
+        a, d = acts[i:i + k], dts[i:i + k]
+        before = eng.state
+        before_copy = tsim.clone_state(before)
+        got = call(a, d)
+        st, want = eng._step_render(kind, st,
+                                    eng._upload(pack_actions(a, d)))
+        assert torch.equal(got, want), i
+        assert states_equal(eng.state, st), i
+        assert states_equal(before, before_copy), i
+        kept.append((got, want.clone()))
+    assert set(eng._graphs) == {(kind, k)}
+    assert all(torch.equal(g, w) for g, w in kept)
+
+
+def test_graph_replay_counts_the_kernels_it_launches(dev):
+    eng = small_engine("cuda")
+    for _ in range(2):                   # eager, then the capture
+        eng.step_and_frame()
+    four = random_actions(4, seed=4)
+    eng.step_and_frame_batch(four)
+    eng.step_and_frame_batch(four)
+    torch.cuda.synchronize()
+    before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
+              cuda_rt.raytrace_planes_batch.launches,
+              cuda_rt.raytrace_planes_batch.frames, fxaa.fxaa_batch.launches)
+    for _ in range(3):
+        eng.step_and_frame()
+    eng.step_and_frame_batch(four)
+    assert (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
+            cuda_rt.raytrace_planes_batch.launches,
+            cuda_rt.raytrace_planes_batch.frames,
+            fxaa.fxaa_batch.launches) == (
+        before[0] + 3, before[1] + 3, before[2] + 1, before[3] + 4,
+        before[4] + 1)
+
+
+def test_eager_device_step_never_syncs(dev):
+    """The eager step (state step, packs, kernels, sky, FXAA select) and a
+    graph replay run under torch.cuda.set_sync_debug_mode("error"): nothing
+    reads the device back or copies from pageable memory."""
+    eng = small_engine("cuda", preview=2)
+    for _ in range(2):                   # builds, then the capture
+        eng.step_and_frame()
+    torch.cuda.synchronize()
+    vecs = eng._upload(pack_actions(random_actions(8, seed=6), [0.05] * 8))
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = eng.state
+        for kind in ("frame", "preview", "batch"):
+            st, out = eng._step_render(kind, st,
+                                       vecs if kind == "batch" else vecs[:1])
+        eng.step(random_actions(1, seed=7)[0], 0.05)
+        eng.fast_forward(random_actions(4, seed=8), 0.05)
+        eng.frame()
+        eng.step_and_frame(random_actions(1, seed=9)[0], 0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+def test_capture_failure_raises(dev):
+    """A step that cannot be captured (here it reads a value back) raises
+    from the call that captures, and renders nothing in its place. Run in
+    a process of its own: a failed capture may leave the context unusable."""
+    code = (
+        "import torch\n"
+        "from raytracing_cuda_tpu_torch.app.loop import Engine\n"
+        "from raytracing_cuda_tpu_torch.utils.config import RenderConfig\n"
+        "eng = Engine(RenderConfig(width=160, height=96,"
+        " procedural_sky_shape=(64, 128)), 'cuda')\n"
+        "step = eng._step_render\n"
+        "def syncing(kind, state, avs):\n"
+        "    new, out = step(kind, state, avs)\n"
+        "    float(out.float().mean())\n"
+        "    return new, out\n"
+        "eng._step_render = syncing\n"
+        "eng.step_and_frame()\n"
+        "try:\n"
+        "    eng.step_and_frame()\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__)\n"
+        "else:\n"
+        "    print('no error')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert "raised" in res.stdout, (res.stdout, res.stderr[-2000:])

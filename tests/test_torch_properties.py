@@ -35,7 +35,7 @@ from raytracing_cuda_tpu.scene.textures import (
 from chip_smoke import (EXTREME, GOLDEN_OFF_FRAC, GOLDEN_RMSE, golden_stats,
                         make_state)
 from raytracing_cuda_tpu_torch.render import cuda_rt as trt
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs, render_frame
+from raytracing_cuda_tpu_torch.render.pipeline import frame_packs, render_frame
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.scene.textures import procedural_skies
 from tests.test_properties import EXTREME_STATES, _extreme_state
@@ -105,7 +105,7 @@ def _planes(env, name):
         scene_f, lights, ambient, jsim.camera_rays(jst.cam, W / H), H, W,
         interpret=True, tri_clusters=jb.ISLAND_TRI_CLUSTERS,
         sph_clusters=jb.ISLAND_SPH_CLUSTERS)])
-    coef, params, nt, ns, _ = host_packs(env[0], make_state(**EXTREME[name]),
+    coef, params, nt, ns, _ = frame_packs(env[0], make_state(**EXTREME[name]),
                                          H, W, None, *ISLAND_CULL)
     got = torch.stack(trt.raytrace_planes_torch(coef, params, H, W, nt,
                                                 ns)).numpy()
@@ -202,7 +202,7 @@ def test_cull_is_sound_at_the_extreme_states(env, name, monkeypatch):
     are held only where the state shows the island."""
     scene = env[0]
     st = make_state(**EXTREME[name])
-    coef, params, nt, ns, table = host_packs(scene, st, H, W, None,
+    coef, params, nt, ns, table = frame_packs(scene, st, H, W, None,
                                              *ISLAND_CULL)
     assert torch.isfinite(params).all() and torch.isfinite(coef).all()
     groups = trt.cull_groups(scene.n_triangles, scene.n_spheres,
@@ -236,7 +236,7 @@ def test_nan_rays_win_no_row_so_no_cull_can_lose_one(env):
     the kernel never makes one (the test above; the shadow rays' light
     distances are checked ray by ray in check_cull_sound)."""
     scene = env[0]
-    coef, params, nt, ns, _ = host_packs(scene, make_state(), H, W, None,
+    coef, params, nt, ns, _ = frame_packs(scene, make_state(), H, W, None,
                                          *ISLAND_CULL)
     n_groups = len(trt.cull_groups(scene.n_triangles, scene.n_spheres,
                                    *ISLAND_CULL))

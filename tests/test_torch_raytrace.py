@@ -23,7 +23,7 @@ from raytracing_cuda_tpu.scene import builders as jb
 from raytracing_cuda_tpu.sim import state as jsim
 from raytracing_cuda_tpu_torch import interop
 from raytracing_cuda_tpu_torch.render import cuda_rt as trt
-from raytracing_cuda_tpu_torch.render.pipeline import host_packs
+from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim.state import derive_frame
 from tests.test_golden import CASES, classic_env, make_state
@@ -45,7 +45,7 @@ def _env(name):
 def _port_planes(tscene, jstate, tc, sc, h=H, row0=0, total_h=None,
                  chunk=65536):
     st = interop.state_from_numpy(jax_fields(jstate))
-    coef, params, nt, ns, _ = host_packs(tscene, st, total_h or h, W, None,
+    coef, params, nt, ns, _ = frame_packs(tscene, st, total_h or h, W, None,
                                          tc, sc)
     return torch.stack(trt.raytrace_planes_torch(
         coef, params, h, W, nt, ns, row0, total_h, chunk)).numpy()
@@ -97,7 +97,7 @@ def test_row_band_matches_full_frame():
 def test_wrapper_runs_plain_version_on_cpu():
     js, st, ts, (tc, sc) = _env("island_night")
     tst = interop.state_from_numpy(jax_fields(st))
-    coef, params, nt, ns, _ = host_packs(ts, tst, H, W, None, tc, sc)
+    coef, params, nt, ns, _ = frame_packs(ts, tst, H, W, None, tc, sc)
     before = trt.raytrace_planes.launches
     a = torch.stack(trt.raytrace_planes(coef, params, H, W, nt, ns))
     b = torch.stack(trt.raytrace_planes_torch(coef, params, H, W, nt, ns))
@@ -113,7 +113,7 @@ def _island_packs(name):
     """(the frame's derived scene, its packs)."""
     st = interop.state_from_numpy(jax_fields(make_state(**CASES[name])))
     scene = tb.build_scene()
-    coef, params, nt, ns, _ = host_packs(scene, st, H, W, None,
+    coef, params, nt, ns, _ = frame_packs(scene, st, H, W, None,
                                          *ISLAND_CULL)
     return derive_frame(scene, st)[0], coef, params, nt, ns
 
@@ -212,7 +212,7 @@ def _cull_packs(name):
     else:
         scene, st, clusters = (tb.build_scene(), port_state(**POSES[name]),
                                ISLAND_CULL)
-    coef, params, nt, ns, table = host_packs(scene, st, H, W, None,
+    coef, params, nt, ns, table = frame_packs(scene, st, H, W, None,
                                              *clusters)
     groups = trt.cull_groups(scene.n_triangles, scene.n_spheres, *clusters)
     return scene, coef, params, nt, ns, groups, table
@@ -315,7 +315,7 @@ def test_cull_is_sound_on_the_rays_frames_cast(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["island_morning", "classic"])
 def test_cull_table_is_cull_groups_with_blocking_flags(name):
-    """The table host_packs builds and the Engine hands the kernel:
+    """The table frame_packs builds and the Engine hands the kernel:
     cull_groups' rows, one group per bound written into params, flagged
     exactly where the group holds a row that blocks shadow rays."""
     from raytracing_cuda_tpu_torch.app.loop import Engine
@@ -339,20 +339,24 @@ def test_cull_table_is_cull_groups_with_blocking_flags(name):
 
 
 def test_engine_copies_the_cull_table_once():
-    """The Engine keeps the packs' table on its device and copies it
-    again only when the packs' table changes."""
+    """The Engine builds the scene's table once, on its device: every
+    frame's packs hand the kernel that same tensor, equal to the table
+    built from the frame's packs."""
     from raytracing_cuda_tpu_torch.app.loop import Engine
     from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 
     eng = Engine(RenderConfig(width=W, height=H, procedural_sky_shape=(32, 64)),
                  device="cpu")
-    table = eng._packs()[4]
-    first = eng._cull_on_device(table)
-    assert torch.equal(first, table)
-    assert eng._cull_on_device(table.clone()) is first
-    other = table.clone()
-    other[0, 1] -= 1
-    assert torch.equal(eng._cull_on_device(other), other)
+    first = eng.cull
+    assert first.device == eng.device
+    for _ in range(2):
+        eng.step_and_frame()
+        coef, _, _, _, table = eng._packs()
+        assert table is first
+    groups = trt.cull_groups(eng.scene.n_triangles, eng.scene.n_spheres,
+                             eng.tri_clusters, eng.sph_clusters,
+                             eng.tri_subs)
+    assert torch.equal(trt.cull_table(coef, groups), first)
 
 
 def test_wrappers_ignore_cull_on_cpu():
