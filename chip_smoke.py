@@ -31,11 +31,22 @@ Phases (any failure exits non-zero):
      device-busy share of the window;
   8. parallel/ at 1280x720 on meshes that repeat the one card: kernel B's
      halo'd band form against its plain version (bands of 2, 4 and 8) and
-     the full-frame kernel, kernel A's launches for the bands of a 4-band
-     split against its plain version, render_frame_sharded against Engine
-     frames (FXAA on and off), Engine(sharded=...) driven with its band
-     counter, Engine.render_script_dp frame DP and hybrid against
-     step_and_frame, and `record --dp` on a one-card machine;
+     the full-frame kernel, kernel A's launches for the halo'd bands of a
+     4-band split (a chunk and one row above and below) against its plain
+     version and the full frame's rows, render_frame_sharded against
+     Engine frames (FXAA on and off); Engine(sharded=[cuda:0] * 4), one
+     CUDA graph per mesh entry per call, driven with its band counter, in
+     turns with the single-device loop and the exchanging eager step; at
+     interleave 1 and 2, 60 frames, 60 preview-2 frames and 8 batches of
+     K = 8 against the eager step and the single-device graph Engine,
+     frames, states and every replica bit for bit; the golden states
+     through the sharded graphs; Engine.render_script_dp frame DP and
+     hybrid (eager, capture, replay) against step_and_frame; the replays
+     under sync debug mode "error"; each entry's graph by replay, host ms
+     per call, the host's API calls per call (profiler: 4 graph launches,
+     at most 9 copies, no kernel), each graph pool's memory, the gather,
+     render_script_dp fps against run(batch=8), and `record --dp` on a
+     one-card machine;
   9. the `fast` and `oracle` render paths and the window's pieces at
      1280x720: Engine(path=...) frames for the golden states against the
      720p goldens and the megakernel path's frames, `fast` at two chunk
@@ -239,6 +250,19 @@ def varied_actions(n):
         time_control=np.int32(1 if i % 2 else 0),
         set_aa_off=np.bool_(i == 2), set_aa_on=np.bool_(i == 5))
         for i in range(n)]
+
+
+def toggling_actions(n: int, seed: int):
+    """random_actions(n, seed) with the camera's second preset at frame
+    n // 8, FXAA off at n // 4 and on again at n // 2."""
+    acts = random_actions(n, seed)
+    for i, kw in ((n // 8, dict(cam_preset=np.int32(1))),
+                  (n // 4, dict(set_aa_off=np.bool_(True),
+                                set_aa_on=np.bool_(False))),
+                  (n // 2, dict(set_aa_on=np.bool_(True),
+                                set_aa_off=np.bool_(False)))):
+        acts[i] = acts[i]._replace(**kw)
+    return acts
 
 
 def random_actions(n: int, seed: int):
@@ -480,6 +504,48 @@ def profiled(fn, reps: int, knames):
               f"device event of {missing} ({len(act[0])} device ops)",
               flush=True)
     return None
+
+
+def profiled_calls(fn, reps: int):
+    """({CUDA runtime or driver call: count}, {device copy: count}) of a
+    torch.profiler trace of reps calls of fn(): what the host issued, and
+    the copies the device ran. Traced again (up to PROFILE_TRIES traces)
+    while the trace holds no CUDA graph launch; None if none does."""
+    from raytracing_cuda_tpu_torch.utils import profiling
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        fn()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("ph") == "X"]
+        api, copies = {}, {}
+        for e in events:
+            if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+                api[e["name"]] = api.get(e["name"], 0) + 1
+            elif e.get("cat") == "gpu_memcpy":
+                copies[e["name"]] = copies.get(e["name"], 0) + 1
+        if any("GraphLaunch" in name for name in api):
+            return api, copies
+        print(f"torch.profiler trace {attempt} of {PROFILE_TRIES} holds no "
+              f"CUDA graph launch ({len(api)} API call names)", flush=True)
+    return None
+
+
+def from_idle(fn, n: int) -> float:
+    """Host ms per call of n calls of fn() enqueued from an idle device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def kernel_device_ms(fn, reps: int, kname: str) -> float:
@@ -1076,38 +1142,52 @@ def main() -> int:
           f"replay: {graph_band:.4f} ms, {graph_full:.4f} ms) [{card}]",
           flush=True)
     # kernel A at the sharded loop's launches: the bands of the 4-band
-    # split, each against its plain version
+    # split with their halo rows (a chunk and one row above and below,
+    # within the frame), each against its plain version and the full
+    # frame's rows
     sub = H // 4
-    a_band_err, work_band = 0.0, dict.fromkeys(cuda_rt.WORK_KEYS, 0)
-    for r0 in range(0, H, sub):
-        kb = cuda_rt.raytrace_planes_batch(coef[None], params[None], sub, W,
-                                           nt, ns, row0=r0, total_h=H,
+    halo_launches = [(max(c * sub - 1, 0), min((c + 1) * sub + 1, H))
+                     for c in range(4)]
+    a_band_err, a_band_rows = 0.0, True
+    work_band = dict.fromkeys(cuda_rt.WORK_KEYS, 0)
+    r0_band, rows_band = halo_launches[1][0], sub + 2
+    for lo, hi in halo_launches:
+        kb = cuda_rt.raytrace_planes_batch(coef[None], params[None], hi - lo,
+                                           W, nt, ns, row0=lo, total_h=H,
                                            cull=cull)
-        pb, ms = timed(lambda r0=r0: cuda_rt.raytrace_planes_batch_torch(
-            coef[None], params[None], sub, W, nt, ns, row0=r0, total_h=H))
+        pb, ms = timed(lambda lo=lo, hi=hi:
+                       cuda_rt.raytrace_planes_batch_torch(
+                           coef[None], params[None], hi - lo, W, nt, ns,
+                           row0=lo, total_h=H))
         a_band_err = max([a_band_err] + [float((a - b).abs().max())
                                          for a, b in zip(kb, pb)])
-        if r0 == sub:
+        a_band_rows &= torch.equal(torch.stack(kb)[:, 0], kern[:, lo:hi])
+        if lo == r0_band:
             ms_a_band_plain = ms
     cuda_rt.raytrace_planes_batch_torch(
-        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H,
-        work=work_band, cull=cull)
-    require(a_band_err == 0.0, f"kernel A bands of the 4-band split (row0 "
-            f"0, {sub}, {2 * sub}, {3 * sub}) vs plain max|diff| "
-            f"{a_band_err}")
-    ms_a_band = cuda_ms(lambda: cuda_rt.raytrace_planes_batch(
-        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H,
-        cull=cull), 20)
+        coef[None], params[None], rows_band, W, nt, ns, row0=r0_band,
+        total_h=H, work=work_band, cull=cull)
+    require(a_band_err == 0.0, f"kernel A halo'd bands of the 4-band split "
+            f"(row0, rows: {[(lo, hi - lo) for lo, hi in halo_launches]}) "
+            f"vs plain max|diff| {a_band_err}")
+    require(a_band_rows, "kernel A halo'd bands equal the full frame's rows "
+            "bit for bit")
+
+    def band_launch():
+        return cuda_rt.raytrace_planes_batch(
+            coef[None], params[None], rows_band, W, nt, ns, row0=r0_band,
+            total_h=H, cull=cull)
+
+    ms_a_band = cuda_ms(band_launch, 20)
     bound_a_band = raytrace_bound(work_band, coef[None], params[None], 1,
-                                  sub, W)
+                                  rows_band, W)
     # events around back-to-back launches of a launch this short time the
     # host's launch rate; a CUDA graph's replay times the device alone
-    graph_a_band = graph_device_ms(lambda: cuda_rt.raytrace_planes_batch(
-        coef[None], params[None], sub, W, nt, ns, row0=sub, total_h=H,
-        cull=cull), 20)
+    graph_a_band = graph_device_ms(band_launch, 20)
     graph_a = graph_device_ms(lambda: cuda_rt.raytrace_planes(
         coef, params, H, W, nt, ns, cull=cull), 20)
-    print(f"kernel A, {sub}-row band at row0 {sub} of 720p island_morning: "
+    print(f"kernel A, {rows_band}-row band (a {sub}-row chunk and its halo "
+          f"rows) at row0 {r0_band} of 720p island_morning: "
           f"{ms_a_band:.4f} ms (plain {ms_a_band_plain:.4f} ms, bound "
           f"{bound_a_band[0]:.6f} ms, {bound_a_band[1]}) vs full frame "
           f"{ms_a:.4f} ms (CUDA events); device time by CUDA graph replay: "
@@ -1134,35 +1214,126 @@ def main() -> int:
             f"n 4; 4 golden states, FXAA on and off) equals the Engine frame "
             f"bit for bit; mismatches {mismatch}")
 
-    # the main path of this slice: a sharded Engine's loop
+    # the main path of this slice: a sharded Engine's loop, one CUDA graph
+    # per mesh entry per call, in turns with the single-device loop and
+    # with the exchanging eager step it replaced
+    from raytracing_cuda_tpu_torch.parallel.mesh import place_bands
+    from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
+    from raytracing_cuda_tpu_torch.utils.timing import FrameTimer, replay_ms
+
     cfg = RenderConfig(width=W, height=H, procedural_sky_shape=SKY_SHAPE)
-    eng_sh = Engine(cfg, DEVICE, sharded=[DEVICE] * 4,
-                    share_assets_from=eng)
-    par_fps = {}
-    for label, e in (("single", eng), ("sharded4", eng_sh),
-                     ("sharded4", eng_sh), ("single", eng)):
+    mesh4 = [DEVICE] * 4
+    idle = Action.idle()
+    eng_sh = {il: Engine(dataclasses.replace(cfg, shard_interleave=il),
+                         DEVICE, sharded=mesh4, share_assets_from=eng)
+              for il in (1, 2)}
+
+    def eager_run(e, n):
+        """n idle frames of e's exchanging eager step (its state step and
+        packs on the Engine's device, then render_bands: the sharded
+        Engine's step before its graphs), timed as Engine.run times."""
+        st = e.state
+        timer = FrameTimer(W, H, e.device).start()
+        for _ in range(n):
+            st, _ = e._step_render("frame", st,
+                                   e._upload(idle.pack(1 / 60)[None]))
+            timer.tick()
+        return timer.stop()
+
+    loop_ms = {}
+    arms = (("single graph", eng, None), ("sharded graph il1", eng_sh[1],
+                                          None),
+            ("sharded eager il1", eng_sh[1], eager_run),
+            ("sharded graph il2", eng_sh[2], None),
+            ("sharded eager il2", eng_sh[2], eager_run))
+    for label, e, eager in (*arms, *arms[::-1]):
         e.set_state(make_state(6.0))
         reset_counts()
-        st = e.run(30)
+        st = eager(e, 60) if eager else e.run(60)
         counts = read_counts()
-        if e is eng_sh:
+        if label == "sharded graph il1":
             band_counts = counts
-        par_fps.setdefault(label, []).append(st.fps)
-        ms = sorted(st.frame_ms)
-        print(f"Engine{'(sharded=[cuda:0] * 4)' if e is eng_sh else ''}"
-              f".run(30) 1280x720 island: {st.fps:.2f} fps, frame ms "
-              f"median {ms[len(ms) // 2]:.4f} (CUDA events; bands "
-              f"serialised on one card) [{card}]", flush=True)
-    print(f"launch counts in Engine(sharded=4 bands).run(30): {band_counts}",
-          flush=True)
+        ms = statistics.median(st.frame_ms)
+        loop_ms.setdefault(label, []).append(ms)
+        print(f"{label} loop, 60 frames 1280x720 island day 6: "
+              f"{st.fps:.2f} fps, frame ms median {ms:.4f} (CUDA events; "
+              f"[cuda:0] * 4 serialises the entries on one card) [{card}]",
+              flush=True)
+    print(f"launch counts in Engine(sharded=[cuda:0] * 4).run(60): "
+          f"{band_counts}", flush=True)
     require(band_counts["fxaa_band"] > 0
             and band_counts["raytrace_megakernel_k8"] > 0,
             "the sharded loop launched kernel A and kernel B's band form")
     require(band_counts["fxaa"] == 0 and band_counts["raytrace_megakernel"]
             == 0, "the sharded loop ran no full-frame launch")
 
-    # frame DP and the hybrid against step_and_frame
-    acts = varied_actions(16)
+    # the graph path against the exchanging eager step and the
+    # single-device graph Engine, frames and states bit for bit, and every
+    # replica against that state after every call
+    pv = {il: Engine(dataclasses.replace(cfg, preview=2, shard_interleave=il),
+                     DEVICE, sharded=mesh4, share_assets_from=eng)
+          for il in (1, 2)}
+    eng_pv = Engine(dataclasses.replace(cfg, preview=2), DEVICE,
+                    share_assets_from=eng)
+
+    def sharded_vs_eager(e, one, kind, n, k):
+        acts = toggling_actions(n, seed=23)
+        dts = [1 / 60 + 0.01 * (i % 4) for i in range(n)]
+        call = {"frame": lambda x, a, d: x.step_and_frame(a[0], d[0]),
+                "preview": lambda x, a, d: x.step_and_frame_preview(a[0],
+                                                                    d[0]),
+                "batch": lambda x, a, d: x.step_and_frame_batch(a, d)}[kind]
+        for x in (e, one):
+            x.set_state(make_state(9.5))
+        st = sim.clone_state(e.state)
+        ok = dict.fromkeys(("eager", "single", "replicas"), True)
+        for i in range(0, n, k):
+            a, d = acts[i:i + k], dts[i:i + k]
+            got = call(e, a, d)
+            st, want = e._step_render(kind, st,
+                                      e._upload(pack_actions(a, d)))
+            ok["eager"] &= (torch.equal(got, want)
+                            and states_equal(e.state, st))
+            ok["single"] &= (torch.equal(got, call(one, a, d))
+                             and states_equal(one.state, st))
+            ok["replicas"] &= all(
+                states_equal(live, st)
+                for live in e._replicas[tuple(e.mesh)].live)
+        return ok
+
+    for il in (1, 2):
+        for kind, n, k, e, one in (("frame", 60, 1, eng_sh[il], eng),
+                                   ("preview", 60, 1, pv[il], eng_pv),
+                                   ("batch", 64, BATCH, eng_sh[il], eng)):
+            ok = sharded_vs_eager(e, one, kind, n, k)
+            require(all(ok.values()),
+                    f"sharded {kind} (K={k}, [cuda:0] * 4, interleave {il}): "
+                    f"{n} frames with a preset change and an FXAA toggle by "
+                    f"one CUDA graph per entry equal the exchanging eager "
+                    f"step ({ok['eager']}) and the single-device graph "
+                    f"Engine ({ok['single']}), frames and states bit for "
+                    f"bit; every replica equals that state after every "
+                    f"call ({ok['replicas']})")
+    golden_sh = {}
+    for name, kw in CASES.items():
+        eng.set_state(make_state(**kw))
+        ref = eng.step_and_frame(idle, 0.0)
+        for il in (1, 2):
+            eng_sh[il].set_state(make_state(**kw))
+            img = eng_sh[il].step_and_frame(idle, 0.0)
+            rm, off = golden_stats(img.cpu().numpy(), load_png(
+                os.path.join(GOLDEN_DIR, f"{name}.png")))
+            golden_sh[f"{name}_il{il}"] = {"rmse": rm, "off_frac": off}
+            require(torch.equal(img, ref) and rm < GOLDEN_RMSE
+                    and off < GOLDEN_OFF_FRAC,
+                    f"{name}: the sharded graph frame (interleave {il}) "
+                    f"equals the single-device graph frame "
+                    f"({torch.equal(img, ref)}) and the golden: rmse "
+                    f"{rm:.5f} off>2 {off:.4%}")
+
+    # frame DP and the hybrid against step_and_frame: three calls (eager,
+    # the capture, a replay), frames, end state and every replica
+    acts = toggling_actions(16, seed=24)
     st0 = make_state(9.5)
     eng.set_state(st0)
     seq = torch.stack([eng.step_and_frame(a, 1 / 30) for a in acts])
@@ -1170,19 +1341,193 @@ def main() -> int:
     eng_dp = Engine(dataclasses.replace(cfg, shard_interleave=2), DEVICE,
                     share_assets_from=eng)
     script_counts = {}
-    for label, kw in (("frame DP over [cuda:0] * 2",
-                       dict(mesh=[DEVICE] * 2)),
-                      ("hybrid 2 x 2, interleave 2",
-                       dict(n_rows=2, mesh=[[DEVICE] * 2] * 2))):
-        eng_dp.set_state(st0)
-        reset_counts()
-        imgs = eng_dp.render_script_dp(acts, dt=1 / 30, **kw)
-        torch.cuda.synchronize()
-        script_counts[label] = read_counts()
-        require(torch.equal(imgs, seq) and states_equal(eng_dp.state, end),
-                f"Engine.render_script_dp, {label}: 16 frames and end state "
-                f"equal 16 step_and_frame calls")
-    print(f"launch counts in render_script_dp: {script_counts}", flush=True)
+    layouts = (("frame DP over [cuda:0] * 2", dict(mesh=[DEVICE] * 2)),
+               ("hybrid 2 x 2, interleave 2",
+                dict(n_rows=2, mesh=[[DEVICE] * 2] * 2)))
+    for label, kw in layouts:
+        for call in range(3):
+            eng_dp.set_state(st0)
+            reset_counts()
+            imgs = eng_dp.render_script_dp(acts, dt=1 / 30, **kw)
+            torch.cuda.synchronize()
+            script_counts[label] = read_counts()
+            reps = next(r for r in eng_dp._replicas.values() if r.current)
+            require(torch.equal(imgs, seq) and states_equal(eng_dp.state, end)
+                    and all(states_equal(live, end) for live in reps.live),
+                    f"Engine.render_script_dp, {label}, call {call + 1} of "
+                    f"3 ({'eager' if call == 0 else 'by CUDA graphs'}): 16 "
+                    f"frames, end state and each of {len(reps.live)} "
+                    f"replicas equal 16 step_and_frame calls")
+    print(f"launch counts in render_script_dp (a replay): {script_counts}",
+          flush=True)
+
+    # the replays read nothing back and copy from no pageable memory
+    vecs8 = [idle] * BATCH
+    for label, kw in layouts:
+        for _ in range(2):
+            eng_dp.render_script_dp(vecs8, **kw)
+    eng_sh[2].step_and_frame_batch(vecs8)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng_sh[2].step_and_frame(idle)
+        eng_sh[2].step_and_frame_batch(vecs8)
+        pv[2].step_and_frame_preview(idle)
+        for label, kw in layouts:
+            eng_dp.render_script_dp(vecs8, **kw)
+        synced = None
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(synced is None, f"the sharded and script graph paths' replays "
+            f"run under torch.cuda.set_sync_debug_mode('error'): {synced}")
+
+    # the numbers: each entry's graph by replay, host ms per call, the
+    # host's API calls per call, each graph pool's memory, script fps
+    entry_ms = {il: [] for il in (1, 2)}
+    for _ in range(3):                     # in turns
+        for il in (1, 2):
+            eng_sh[il].set_state(make_state(6.0))
+            eng_sh[il].step_and_frame(idle)
+            graphs = eng_sh[il]._replicas[tuple(eng_sh[il].mesh)].graphs
+            entry_ms[il].append([replay_ms(g.graph, 1, 20)
+                                 for g in graphs["bands", 1]])
+    host_ms = {}
+    for il in (1, 2):
+        e = eng_sh[il]
+        for label, call in (("graph", lambda: e.step_and_frame(idle)),
+                            ("eager", lambda: e._step_render(
+                                "frame", e.state,
+                                e._upload(idle.pack(1 / 60)[None])))):
+            e.set_state(make_state(6.0))
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(60):
+                call()
+            t_host = (time.perf_counter() - t0) * 1e3 / 60
+            torch.cuda.synchronize()
+            drained = (time.perf_counter() - t0) * 1e3 / 60
+            # a call's own host time, which a full launch queue does not
+            # throttle: 8 calls enqueued from an idle device, 5 times
+            host_ms[f"{label} il{il}"] = (
+                t_host, drained, statistics.median(
+                    from_idle(call, 8) for _ in range(5)))
+    replay_host = {}
+    for il in (1, 2):
+        graphs = eng_sh[il]._replicas[tuple(eng_sh[il].mesh)].graphs
+        replay_host[il] = [statistics.median(
+            from_idle(g.graph.replay, 8) for _ in range(5))
+            for g in graphs["bands", 1]]
+    # device-bound: the Engine's loop against its entries' graphs replayed
+    # back to back with nothing between them, 30 frames each, in turns
+    # (the card's speed moves between two modes over a run, PERF.md §7)
+    bound_pairs = {il: [] for il in (1, 2)}
+    for _ in range(3):
+        for il in (1, 2):
+            e = eng_sh[il]
+            graphs = e._replicas[tuple(e.mesh)].graphs["bands", 1]
+            e.set_state(make_state(6.0))
+            loop = statistics.median(e.run(30).frame_ms)
+            timer = FrameTimer(W, H, dev).start()
+            for _ in range(30):
+                for g in graphs:
+                    g.graph.replay()
+                timer.tick()
+            bound_pairs[il].append(
+                (loop, statistics.median(timer.stop().frame_ms)))
+    calls = {}
+    for il in (1, 2):
+        got = profiled_calls(lambda: eng_sh[il].step_and_frame(idle), 30)
+        require(got is not None, f"a torch.profiler trace of 30 sharded "
+                f"calls (interleave {il}) holds the host's CUDA graph "
+                f"launches")
+        api, memcpy = got
+        calls[il] = {"api": api, "memcpy": memcpy}
+        print(f"sharded graph path, interleave {il}, 30 step_and_frame "
+              f"calls (torch.profiler): host API calls {api}; device "
+              f"copies {memcpy} [{card}]", flush=True)
+        per = {what: sum(v for k, v in api.items() if what in k) / 30
+               for what in ("GraphLaunch", "Memcpy", "LaunchKernel")}
+        require(per["GraphLaunch"] == 4 and per["Memcpy"] <= 2 * 4 + 1
+                and per["LaunchKernel"] == 0,
+                f"a sharded call (interleave {il}) launches 4 graphs "
+                f"({per['GraphLaunch']}), at most 9 copies "
+                f"({per['Memcpy']}) and no kernel of its own "
+                f"({per['LaunchKernel']}) per call")
+    pools = {}
+    for label, e in (("single", eng), ("sharded il1", eng_sh[1]),
+                     ("sharded il2", eng_sh[2]), ("preview il2", pv[2]),
+                     ("script", eng_dp)):
+        for reps in e._holders():
+            for key, graphs in reps.graphs.items():
+                pools[f"{label} {key}"] = [
+                    tuple(round(b / 2 ** 20, 1) for b in g.memory)
+                    for g in graphs]
+    print(f"CUDA graph pools, (allocated, reserved) MB per entry kept by "
+          f"each capture: {pools} [{card}]", flush=True)
+    # one entry's rows gathered into the frame, by graph replay
+    frame = torch.empty((1, H, W, 3), dtype=torch.uint8, device=dev)
+    gather_ms = {}
+    for il in (1, 2):
+        reps = eng_sh[il]._replicas[tuple(eng_sh[il].mesh)]
+        out = reps.graphs["bands", 1][0].out
+        gather_ms[il] = graph_device_ms(
+            lambda out=out: place_bands(frame, out, 0, 4), 20)
+    script_fps = {}
+    vecs8 = pack_actions(vecs8, [1 / 60] * BATCH)
+    for label, kw in (("run(batch=8)", None), *layouts, *layouts[::-1],
+                      ("run(batch=8)", None)):
+        if kw is None:
+            eng.set_state(make_state(6.0))
+            st = eng.run(64, batch=BATCH)
+        else:
+            eng_dp.set_state(make_state(6.0))
+            timer = FrameTimer(W, H, dev).start()
+            for _ in range(64 // BATCH):
+                eng_dp.render_script_dp(vecs8, **kw)
+                timer.tick(BATCH)
+            st = timer.stop()
+        script_fps.setdefault(label, []).append((st.fps, st.host_fps))
+    sums = {il: [sum(r) for r in entry_ms[il]] for il in (1, 2)}
+    for il in (1, 2):
+        dev_ms = statistics.median(sums[il])
+        over = statistics.median(a / b - 1 for a, b in bound_pairs[il])
+        print(f"sharded graph path, interleave {il}: entries' graphs by "
+              f"replay (3 rounds) {entry_ms[il]} ms, sum median "
+              f"{dev_ms:.4f} ms; loop frame ms (CUDA events) "
+              f"{loop_ms[f'sharded graph il{il}']}, eager "
+              f"{loop_ms[f'sharded eager il{il}']}, single graph "
+              f"{loop_ms['single graph']}; in turns, the loop's frame ms "
+              f"against its entries' graphs replayed back to back (CUDA "
+              f"events, medians of 30) {bound_pairs[il]}; host ms per call "
+              f"(60 enqueued ahead of the device, drained, 8 from an idle "
+              f"device) graph {host_ms[f'graph il{il}']}, eager "
+              f"{host_ms[f'eager il{il}']}; host ms per entry replay (8 "
+              f"from an idle device) {replay_host[il]}; one entry's gather "
+              f"{gather_ms[il]:.4f} ms by replay [{card}]", flush=True)
+        slowest = max(statistics.median(r[e] for r in entry_ms[il])
+                      for e in range(4))
+        print(f"projection, not a measurement: on 4 distinct cards a "
+              f"sharded frame (interleave {il}) would take the larger of "
+              f"the slowest entry's graph plus a gather, "
+              f"{slowest + gather_ms[il]:.4f} ms, and a call's host time, "
+              f"{host_ms[f'graph il{il}'][2]:.4f} ms [{card}]", flush=True)
+        require(host_ms[f"graph il{il}"][0] < dev_ms,
+                f"host ms per sharded call (interleave {il}) "
+                f"{host_ms[f'graph il{il}'][0]:.4f} below its device ms "
+                f"{dev_ms:.4f}")
+        require(abs(over) <= 0.15,
+                f"the sharded loop's frame time (interleave {il}) is within "
+                f"15 % of its entries' graphs replayed back to back in the "
+                f"same turn ({over:+.2%}, median of 3 turns): the loop is "
+                f"device-bound")
+    print(f"render_script_dp fps (CUDA events, host clock), 64 frames in "
+          f"calls of K = {BATCH}, against Engine.run(64, batch={BATCH}): "
+          f"{script_fps} [{card}]", flush=True)
 
     # the CLI: --dp needs distinct cards; --dp 1 --dp-rows 1 is plain record
     with tempfile.TemporaryDirectory() as tmp:
@@ -1210,8 +1555,14 @@ def main() -> int:
                           "raytrace_full_graph_ms": graph_a,
                           "raytrace_band_max_abs_err": a_band_err,
                           "fxaa_full_device_ms": dev_full,
-                          "fps": par_fps, "counts": band_counts,
-                          "script_counts": script_counts}
+                          "loop_ms": loop_ms, "counts": band_counts,
+                          "script_counts": script_counts,
+                          "golden_sharded": golden_sh,
+                          "entry_graph_ms": entry_ms, "host_ms": host_ms,
+                          "replay_host_ms": replay_host,
+                          "loop_vs_graphs_ms": bound_pairs,
+                          "api_calls": calls, "pools_mb": pools,
+                          "gather_ms": gather_ms, "script_fps": script_fps}
 
     # --- 9. the fast and oracle paths, the preview and the readback ---
     phase(9)

@@ -11,17 +11,32 @@ megakernel, the sky lookup + quantize, and FXAA selected by the state's
 toggle. The one host-to-device copy per frame is the (16,) action vector
 (K of them for a batch), from pinned memory on a card.
 
-On a card, on the single-device static-sky megakernel path (path "auto",
-sky_cache=True, no mesh), `step_and_frame`, `step_and_frame_batch` (one
-graph per K) and `step_and_frame_preview` replay a CUDA graph of that
-device step: its first call runs the step eagerly (the warm-up, which also
-builds and loads the kernels), the second captures the same code and every
-call from then on replays it. The graph reads the state from buffers of
-its own and writes the new state back into them; `Engine.state` hands out
-a snapshot (a copy made when it is read), and each frame returned is a
-copy of the graph's output, so no later call overwrites it. A failed
-capture raises: there is no eager fallback on the card. A replay adds to
-each kernel wrapper's launch counter the launches its capture recorded.
+On a card, on the static-sky megakernel path (path "auto", sky_cache=True
+or sharded), `step_and_frame`, `step_and_frame_batch` (one graph per K)
+and `step_and_frame_preview` replay CUDA graphs of that device step: the
+first call of each kind and K runs the step eagerly (the warm-up, which
+also builds and loads the kernels), the second captures the same code and
+every call from then on replays it. The graphs read the state from
+buffers of their own and write the new state back into them;
+`Engine.state` hands out a snapshot (a copy made when it is read), and
+each frame returned is a copy of the graphs' output, so no later call
+overwrites it. A failed capture raises: there is no eager fallback on the
+card. A replay adds to each kernel wrapper's launch counter the launches
+its capture recorded.
+
+A sharded Engine, and `render_script_dp`, run the JAX package's shard_map
+programs the same way, one graph per mesh entry per call: every entry
+holds a replica of the state on its device (the JAX package's replicated
+state, in_specs=P()) beside that device's copy of the scene, cull table
+and sky stack, uploads the action vectors itself, steps its replica and
+renders its rows (parallel/mesh.py entry_bands, recomputing its halo rows
+instead of exchanging them) or its block of frames (parallel/frames.py
+script_entry, after scanning all K actions); no entry waits on another
+within a call. The host then copies each entry's rows into the frame on
+the Engine's device (parallel/mesh.py place_bands): n graph launches, n
+uploads and n copies per call. The replicas stay equal because every
+entry steps the same actions with the same code. On the CPU the same
+per-entry code runs eagerly with the plain kernels.
 
 `step_and_frame_batch` renders K frames with one launch of each kernel
 (render/pipeline.py `batch_packs` / `frames_from_packs`); `run(batch=K)`
@@ -29,12 +44,17 @@ and the CLI's `record` drive it.
 
 config.path "fast" and "oracle" render with the plain PyTorch raytracers
 instead (render/fast.py, render/reference.py) from the sky blended per
-frame, and config.sky_cache=False renders the megakernel path through the
-one-shot `render_frame`; a batch is then a loop of single frames, as the
-JAX package scans them (loop.py:219-230). These paths, and the sharded
-Engine, run the same device step eagerly, with no graph.
+frame, and config.sky_cache=False renders the single-device megakernel
+path through the one-shot `render_frame`; a batch is then a loop of
+single frames, as the JAX package scans them (loop.py:219-230). These
+paths, sharded or not, run the same device step eagerly with no graph:
+`fast` reads a value back per chunk (`bool(mask.any())`), which a capture
+forbids. A sharded Engine always renders from the static stack, as the
+JAX package's (loop.py:129-131), so sky_cache=False does not change it.
 `step_and_frame_preview` renders at full size and box-downsamples on the
-device for the window's readback.
+device for the window's readback. `Engine.frame()` renders the current
+state eagerly (for a sharded Engine through parallel/mesh.py
+render_bands, the exchanging reference).
 
 The device is always explicit: Engine(config, device="cuda") runs the CUDA
 kernels, device="cpu" their plain PyTorch versions through the same eager
@@ -46,6 +66,7 @@ and rows, spread over devices (parallel/frames.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Callable, NamedTuple
@@ -58,7 +79,9 @@ from raytracing_cuda_tpu_torch.core.types import Camera, to_device
 from raytracing_cuda_tpu_torch.parallel import frames as pframes
 from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
                                                      band_rows, devices,
-                                                     make_mesh, render_bands,
+                                                     entry_bands, make_mesh,
+                                                     place_bands,
+                                                     render_bands,
                                                      render_bands_plain)
 from raytracing_cuda_tpu_torch.render.cuda_rt import (cull_groups, cull_table,
                                                       pack_scene,
@@ -70,7 +93,9 @@ from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
                                                        frame_packs,
                                                        frames_from_packs,
                                                        pack_actions,
-                                                       render_frame)
+                                                       render_frame,
+                                                       stack_packs,
+                                                       step_states)
 from raytracing_cuda_tpu_torch.scene.builders import (CLASSIC_CAMERA,
                                                       SPH_CLUSTERS,
                                                       TRI_CLUSTERS, TRI_SUBS,
@@ -124,13 +149,51 @@ def _launch_counters() -> list:
 
 
 class _Graph(NamedTuple):
-    """One captured device step: the graph, its static action input
-    (K, 16), its output (frames), and the launch counts one replay adds."""
+    """One captured device step of one mesh entry: the graph, its static
+    action input (K, 16), its output (frames or the entry's rows), the
+    launch counts one replay adds, and the device memory the capture kept
+    on the entry's device, (allocated, reserved) bytes: the graph's own
+    memory pool."""
 
     graph: object
     actions: torch.Tensor
     out: torch.Tensor
     counts: tuple
+    memory: tuple
+
+
+class _Replicas:
+    """One state replica per entry of a mesh, each on its entry's device:
+    the buffers the entries' steps read and write (made at their first
+    call), whether they hold the Engine's current state, the CUDA graphs
+    captured on them (by call key, one per entry) and the keys whose
+    first, eager call has run."""
+
+    def __init__(self, mesh):
+        self.mesh = list(mesh)
+        self.live: list | None = None
+        self.current = False
+        self.graphs: dict = {}
+        self.warm: set = set()
+
+
+def _state_copy(state: sim.FrameState, device) -> sim.FrameState:
+    """A copy of `state` on `device` that shares no tensor with it."""
+    moved = sim.state_to(state, device)
+    return sim.clone_state(moved) if moved is state else moved
+
+
+def _write_state(live: sim.FrameState, new: sim.FrameState) -> None:
+    """Copy state `new` into the buffers of state `live`. A field of `new`
+    may be a buffer of `live` itself (recolor_vars is the old sky_vars):
+    those are copied before any buffer is written."""
+    dst = sim.state_tensors(live)
+    shared = {t.data_ptr() for t in dst}
+    src = [s if s is d else s.clone() if s.data_ptr() in shared else s
+           for d, s in zip(dst, sim.state_tensors(new))]
+    for d, s in zip(dst, src):
+        if s is not d:
+            d.copy_(s)
 
 
 class Engine:
@@ -193,36 +256,48 @@ class Engine:
         # the step's constant tables, copied to the device here: a CUDA
         # graph cannot capture a copy from pageable host memory
         sim.device_constants(self.device)
-        # the static sky stack on each device that renders, copied to a
-        # device once, at its first use
+        # the scene, cull table and static sky stack on each device that
+        # renders, copied to a device once, at its first use
+        self._scenes = dict(getattr(src, "_scenes", {}))
+        self._culls = dict(getattr(src, "_culls", {}))
         self._sky_packs = dict(getattr(src, "_sky_packs", {}))
         if static:
-            self._sky_packs[self.sky_pack.device] = self.sky_pack
-            self._sky_packs_for(self.mesh or [])
-        # the state: a snapshot handed out (None while only the graphs'
-        # buffers hold it), the graphs' state buffers, and whether those
-        # hold the current state
+            self._scenes[self.device] = self.scene
+            self._culls[self.device] = self.cull
+            self._sky_packs[self.device] = self.sky_pack
+            self._assets_for(self.mesh or [])
+        # the state: a snapshot handed out (None while only replicas hold
+        # it); the replicas of the single-device graph path and of each
+        # mesh, with their graphs
         self._state = None
-        self._live = None
-        self._live_current = False
+        self._single = _Replicas([self.device])
+        self._replicas: dict = {}
         self.state = state
-        # CUDA graphs of the device step by (kind, K), and the keys whose
-        # first, eager call has run
-        self._graphs: dict = {}
-        self._warm: set = set()
 
     @property
     def state(self) -> sim.FrameState:
         """The current state on the engine device: a snapshot, which no
-        later step writes into."""
+        later step writes into (entry 0's replica, copied when read)."""
         if self._state is None:
-            self._state = sim.clone_state(self._live)
+            reps = next(r for r in self._holders() if r.current)
+            self._state = _state_copy(reps.live[0], self.device)
         return self._state
 
     @state.setter
     def state(self, state: sim.FrameState):
+        """Make `state` current: every replica is written from it before
+        its next step."""
         self._state = sim.state_to(state, self.device)
-        self._live_current = False
+        for reps in self._holders():
+            reps.current = False
+
+    def _holders(self) -> list:
+        return [self._single, *self._replicas.values()]
+
+    @property
+    def _graphs(self) -> dict:
+        """The single-device path's CUDA graphs by (kind, K)."""
+        return {key: gs[0] for key, gs in self._single.graphs.items()}
 
     def _row_mesh(self, sharded):
         """The row mesh of sharded (True: all devices of the engine's type;
@@ -247,26 +322,47 @@ class Engine:
         band_rows(self.config.height, len(mesh), interleave)   # fail fast
         return mesh
 
-    def _sky_packs_for(self, mesh) -> dict:
+    def _assets_for(self, mesh) -> None:
+        """Put the scene, the cull table, the static sky stack and the
+        step's constants on every device of mesh, once per device, before
+        any capture."""
         for d in dict.fromkeys(mesh):
             if d.type != self.device.type:
                 raise ValueError(f"a {self.device.type} engine cannot render "
                                  f"on {d}")
+            if d not in self._scenes:
+                self._scenes[d] = to_device(self.scene, d)
+            if d not in self._culls:
+                self._culls[d] = self.cull.to(d)
             if d not in self._sky_packs:
                 self._sky_packs[d] = self.sky_pack.to(d)
-        return self._sky_packs
+            sim.device_constants(d)
+
+    def _replicas_for(self, mesh) -> _Replicas:
+        """The state replicas of a mesh (a flat list of devices)."""
+        reps = self._replicas.get(tuple(mesh))
+        if reps is None:
+            self._assets_for(mesh)
+            reps = self._replicas[tuple(mesh)] = _Replicas(mesh)
+        return reps
 
     # --- state ---
 
-    def _upload(self, vecs, out=None) -> torch.Tensor:
-        """(K, 16) packed actions → a float32 tensor on the engine device
-        (`out`, where given): the frame's one host-to-device copy, from
-        pinned memory on a card (the caching host allocator keeps the
-        buffer until the copy has read it, so the host never waits)."""
+    def _host(self, vecs) -> torch.Tensor:
+        """(K, 16) packed actions → float32, in pinned memory on a card
+        (the caching host allocator keeps the buffer until the copies have
+        read it, so the host never waits)."""
         t = (vecs.to(torch.float32) if isinstance(vecs, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(vecs, np.float32)))
         if self.device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory()
+        return t
+
+    def _upload(self, vecs, out=None) -> torch.Tensor:
+        """(K, 16) packed actions → a float32 tensor on the engine device
+        (`out`, where given): the frame's one host-to-device copy, from
+        pinned memory on a card."""
+        t = self._host(vecs)
         if out is not None:
             return out.copy_(t, non_blocking=True)
         return t.to(self.device, non_blocking=True)
@@ -364,13 +460,28 @@ class Engine:
         return self._render_static(self.state)
 
     def _step_render(self, kind: str, state, avs):
-        """The device step of one call on the static single-device path:
-        from `state`, on packed actions avs (K, 16) on the engine device →
-        (the new state, the output). kind "frame": one frame; "preview":
-        one frame box-downsampled by config.preview; "batch": K frames,
-        each kernel launched once. What the CUDA graphs capture."""
+        """The eager device step of one call: from `state`, on packed
+        actions avs (K, 16) on the engine device → (the new state, the
+        output). kind "frame": one frame; "preview": one frame
+        box-downsampled by config.preview; "batch": K frames, each kernel
+        launched once. On the single-device static path this is what the
+        CUDA graph captures; on a sharded Engine it is the exchanging
+        reference the entries' graphs are held against (the state stepped
+        and packed on the engine device, then parallel/mesh.py
+        render_bands)."""
+        c = self.config
+        if self.mesh is not None:
+            coefs, params, n_tri, n_sph, _, states = batch_packs(
+                self.scene, state, avs, c.height, c.width, c.aspect,
+                self.tri_clusters, self.sph_clusters, self.tri_subs,
+                self.cull)
+            img = self._bands(coefs, params, n_tri, n_sph, states)
+            if kind != "batch":
+                img = img[0]
+            if kind == "preview":
+                img = _box_downsample(img, c.preview)
+            return states[-1], img
         if kind == "batch":
-            c = self.config
             coefs, params, n_tri, n_sph, _, states = batch_packs(
                 self.scene, state, avs, c.height, c.width, c.aspect,
                 self.tri_clusters, self.sph_clusters, self.tri_subs,
@@ -381,80 +492,142 @@ class Engine:
         state = sim.animate_packed(state, avs[0])
         img = self._render_static(state)
         if kind == "preview":
-            img = _box_downsample(img, self.config.preview)
+            img = _box_downsample(img, c.preview)
         return state, img
 
-    def _load_live(self):
-        """Make the graphs' state buffers hold the current state."""
-        if self._live is None:
-            self._live = sim.clone_state(self.state)
-        elif not self._live_current:
-            for dst, src in zip(sim.state_tensors(self._live),
-                                sim.state_tensors(self._state)):
-                dst.copy_(src)
-        self._live_current = True
+    def _shard_step(self, entry: int, state, avs):
+        """Mesh entry `entry`'s step of a sharded call, on its device: its
+        replica stepped on the K actions avs (K, 16), the packs of the K
+        new states, and its rows of the K frames (entry_bands) → (the K-th
+        state, (K, interleave, sub, W, 3) uint8)."""
+        c = self.config
+        d = self.mesh[entry]
+        states = step_states(state, avs, d)
+        coefs, params, n_tri, n_sph, cull = stack_packs(
+            self._scenes[d], states, c.height, c.width, c.aspect,
+            self.tri_clusters, self.sph_clusters, self.tri_subs,
+            self._culls[d])
+        return states[-1], entry_bands(
+            coefs, params, n_tri, n_sph, states, self._sky_packs[d],
+            self.sky_h, self.sky_w, entry=entry, n=len(self.mesh),
+            height=c.height, width=c.width, interleave=c.shard_interleave,
+            cull=cull)
 
-    def _capture(self, kind: str, k: int) -> _Graph:
-        """A CUDA graph of _step_render(kind) from the graphs' state
-        buffers on a static (k, 16) action buffer, which writes the new
-        state back into those buffers. Raises where the capture fails."""
-        actions = torch.zeros((k, 16), dtype=torch.float32,
-                              device=self.device)
-        live = sim.state_tensors(self._live)
-        counters = _launch_counters()
-        before = [getattr(fn, attr) for fn, attr in counters]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                new, out = self._step_render(kind, self._live, actions)
-                new = sim.state_tensors(new)
-                # a new field may be an input buffer itself (recolor_vars
-                # is the old sky_vars): copy those before any is written
-                shared = {t.data_ptr() for t in live}
-                new = [t.clone() if t.data_ptr() in shared else t
-                       for t in new]
-                for dst, src in zip(live, new):
+    def _load(self, reps: _Replicas) -> None:
+        """Make the replicas of `reps` hold the current state."""
+        if reps.current:
+            return
+        state = self.state
+        if reps.live is None:
+            reps.live = [_state_copy(state, d) for d in reps.mesh]
+        else:
+            for live in reps.live:
+                for dst, src in zip(sim.state_tensors(live),
+                                    sim.state_tensors(state)):
                     dst.copy_(src)
-        finally:
-            # the capture recorded the launches, it ran none
-            after = [getattr(fn, attr) for fn, attr in counters]
-            for (fn, attr), n in zip(counters, before):
-                setattr(fn, attr, n)
+        reps.current = True
+
+    def _capture(self, step, entry: int, live, device, k: int) -> _Graph:
+        """A CUDA graph of step(entry, live, actions) on `device` from the
+        replica `live` on a static (k, 16) action buffer, which writes the
+        new state back into the replica; in a memory pool of its own.
+        Raises where the capture fails."""
+        with torch.cuda.device(device):
+            actions = torch.zeros((k, 16), dtype=torch.float32,
+                                  device=device)
+            counters = _launch_counters()
+            before = [getattr(fn, attr) for fn, attr in counters]
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            mem = (torch.cuda.memory_allocated(device),
+                   torch.cuda.memory_reserved(device))
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    new, out = step(entry, live, actions)
+                    _write_state(live, new)
+            finally:
+                # the capture recorded the launches, it ran none
+                after = [getattr(fn, attr) for fn, attr in counters]
+                for (fn, attr), n in zip(counters, before):
+                    setattr(fn, attr, n)
+            mem = (torch.cuda.memory_allocated(device) - mem[0],
+                   torch.cuda.memory_reserved(device) - mem[1])
         return _Graph(graph, actions, out,
-                      tuple(a - b for a, b in zip(after, before)))
+                      tuple(a - b for a, b in zip(after, before)), mem)
+
+    def _call(self, reps: _Replicas, key, vecs, step):
+        """One call of `step` on every entry of `reps`: entry e steps its
+        replica, step(e, replica, actions) → (new state, output), on the
+        packed actions vecs (K, 16) uploaded to its device → (the entries'
+        outputs, whether graphs ran). On a card the first call of each key
+        runs eagerly, the second captures one CUDA graph per entry and
+        every call from then on replays them; a graph's output is
+        overwritten by its next replay. Elsewhere every call is eager."""
+        self._load(reps)
+        replay = self.device.type == "cuda" and key in reps.warm
+        reps.warm.add(key)
+        vecs = self._host(vecs)
+        outs = []
+        if replay:
+            graphs = reps.graphs.get(key)
+            if graphs is None:
+                graphs = reps.graphs[key] = [
+                    self._capture(step, e, live, d, len(vecs))
+                    for e, (live, d) in enumerate(zip(reps.live,
+                                                      reps.mesh))]
+            for g, d in zip(graphs, reps.mesh):
+                with torch.cuda.device(d):
+                    g.actions.copy_(vecs, non_blocking=True)
+                    g.graph.replay()
+                for (fn, attr), n in zip(_launch_counters(), g.counts):
+                    setattr(fn, attr, getattr(fn, attr) + n)
+                outs.append(g.out)
+        else:
+            for e, (live, d) in enumerate(zip(reps.live, reps.mesh)):
+                with (torch.cuda.device(d) if d.type == "cuda"
+                      else contextlib.nullcontext()):
+                    new, out = step(e, live, vecs.to(d, non_blocking=True))
+                    _write_state(live, new)
+                outs.append(out)
+        self._state = None                  # the replicas hold it
+        for r in self._holders():
+            r.current = r is reps
+        return outs, replay
 
     def _run_static(self, kind: str, vecs):
         """One call of the device step on the static single-device path,
         from the current state on packed actions vecs (K, 16) → the output,
-        which no later call overwrites. On a card: the first call of each
-        (kind, K) eagerly, the second captures a CUDA graph, and from then
-        on each call replays it."""
-        key = (kind, len(vecs))
-        if self.device.type != "cuda" or key not in self._warm:
-            self._warm.add(key)
-            self.state, out = self._step_render(kind, self.state,
-                                                self._upload(vecs))
-            return out
-        with torch.cuda.device(self.device):
-            self._load_live()
-            g = self._graphs.get(key)
-            if g is None:
-                g = self._graphs[key] = self._capture(kind, len(vecs))
-            self._upload(vecs, out=g.actions)
-            g.graph.replay()
-            for (fn, attr), n in zip(_launch_counters(), g.counts):
-                setattr(fn, attr, getattr(fn, attr) + n)
-            self._state = None           # the graphs' buffers hold it
-            return g.out.clone()
+        which no later call overwrites."""
+        outs, replay = self._call(
+            self._single, (kind, len(vecs)), vecs,
+            lambda _, state, avs: self._step_render(kind, state, avs))
+        return outs[0].clone() if replay else outs[0]
+
+    def _run_sharded(self, vecs) -> torch.Tensor:
+        """One call of the sharded device step on packed actions vecs
+        (K, 16): every mesh entry steps its replica and renders its rows,
+        then the rows are copied into the K frames on the engine device →
+        (K, H, W, 3) uint8."""
+        c = self.config
+        outs, _ = self._call(self._replicas_for(self.mesh),
+                             ("bands", len(vecs)), vecs, self._shard_step)
+        frames = torch.empty((len(vecs), c.height, c.width, 3),
+                             dtype=torch.uint8, device=self.device)
+        for e, out in enumerate(outs):
+            place_bands(frames, out, e, len(self.mesh))
+        return frames
 
     def step_and_frame(self, action: Action | None = None,
                        dt: float = 1 / 60) -> torch.Tensor:
         """Step the state machine, then render the new state."""
-        if self.sky_pack is not None and self.mesh is None:
-            return self._run_static(
-                "frame", (action or Action.idle()).pack(dt)[None])
-        self.step(action, dt)
-        return self.frame()
+        if self.sky_pack is None:
+            self.step(action, dt)
+            return self.frame()
+        vec = (action or Action.idle()).pack(dt)[None]
+        if self.mesh is None:
+            return self._run_static("frame", vec)
+        return self._run_sharded(vec)[0]
 
     def step_and_frame_preview(self, action: Action | None = None,
                                dt: float = 1 / 60) -> torch.Tensor:
@@ -487,14 +660,7 @@ class Engine:
             return torch.stack(imgs)
         if self.mesh is None:
             return self._run_static("batch", vecs)
-        c = self.config
-        coefs, params, n_tri, n_sph, _, states = batch_packs(
-            self.scene, self.state, self._upload(vecs), c.height, c.width,
-            c.aspect, self.tri_clusters, self.sph_clusters, self.tri_subs,
-            self.cull)
-        imgs = self._bands(coefs, params, n_tri, n_sph, states)
-        self.state = states[-1]
-        return imgs
+        return self._run_sharded(vecs)
 
     def render_script_dp(self, action_vecs, n_devices: int | None = None,
                          dt: float = 1 / 60, n_rows: int = 1, mesh=None):
@@ -509,7 +675,12 @@ class Engine:
         the config's shard_interleave. mesh overrides the devices: a list
         (frame DP) or a list of n_frames lists of devices (hybrid). dt
         applies to a list of Actions; packed (K, 16) vectors carry their
-        own dt."""
+        own dt.
+
+        Every entry of the mesh scans all K actions from its replica of
+        the state and renders its rows of its group's block of frames
+        (parallel/frames.py script_entry): one CUDA graph per entry on a
+        card for each K and layout, as the single-device path's."""
         if self.mesh is not None:
             raise ValueError("frame DP and row sharding are alternative "
                              "layouts; build the Engine with sharded=False "
@@ -520,6 +691,7 @@ class Engine:
                              "sky_cache=True)")
         if isinstance(action_vecs, (list, tuple)):
             action_vecs = pack_actions(action_vecs, [dt] * len(action_vecs))
+        vecs = pack_actions(action_vecs, None)
         c = self.config
         if mesh is None:
             kind = self.device.type
@@ -530,16 +702,36 @@ class Engine:
         # a flat list is frame DP: one device per frame group
         mesh = [as_mesh(g if isinstance(g, (list, tuple)) else [g])
                 for g in mesh]
-        imgs, self.state = pframes.render_script_hybrid(
-            self.scene, self.state,
-            self._sky_packs_for([d for g in mesh for d in g]), self.sky_h,
-            self.sky_w, action_vecs, mesh=mesh, height=c.height,
-            width=c.width, aspect=c.aspect,
-            # one device per group: striding does not exist (as _row_mesh)
-            interleave=c.shard_interleave if len(mesh[0]) > 1 else 1,
-            tri_clusters=self.tri_clusters, sph_clusters=self.sph_clusters,
-            t_subs=self.tri_subs)
-        return imgs.to(self.device)
+        if not mesh or len({len(g) for g in mesh}) > 1:
+            raise ValueError("a hybrid mesh is a non-empty list of equally "
+                             "long device lists")
+        n_frames, n_rows = len(mesh), len(mesh[0])
+        # one device per group: striding does not exist (as _row_mesh)
+        interleave = c.shard_interleave if n_rows > 1 else 1
+        per = pframes.frame_blocks(len(vecs), n_frames, "frame axis")
+        band_rows(c.height, n_rows, interleave)
+        flat = [d for g in mesh for d in g]
+
+        def step(entry, state, avs):
+            d = flat[entry]
+            return pframes.script_entry(
+                self._scenes[d], state, avs, self._sky_packs[d], self.sky_h,
+                self.sky_w, group=entry // n_rows, row=entry % n_rows,
+                n_frames=n_frames, n_rows=n_rows, height=c.height,
+                width=c.width, aspect=c.aspect, interleave=interleave,
+                tri_clusters=self.tri_clusters,
+                sph_clusters=self.sph_clusters, t_subs=self.tri_subs,
+                cull=self._culls[d])
+
+        outs, _ = self._call(
+            self._replicas_for(flat),
+            ("script", len(vecs), n_frames, n_rows, interleave), vecs, step)
+        imgs = torch.empty((len(vecs), c.height, c.width, 3),
+                           dtype=torch.uint8, device=self.device)
+        for e, out in enumerate(outs):
+            g = e // n_rows
+            place_bands(imgs[g * per:(g + 1) * per], out, e % n_rows, n_rows)
+        return imgs
 
     def frame_np(self) -> np.ndarray:
         return self.frame().cpu().numpy()

@@ -3,13 +3,25 @@ raytracing_cuda_tpu/parallel/frames.py).
 
 Row bands (parallel/mesh.py) cut the latency of one frame; a scripted
 animation rendered offline (record) wants throughput, and its frames are
-independent once their states are known. The host state machine steps
-through all K states in order, then device d renders its contiguous block
-of K / n frames with one launch of each kernel, so frame k equals the
-k-th Engine.step_and_frame from the same state. The hybrid composes this
-with row bands: n_frames groups of n_rows devices, each group rendering
-its block of frames in bands (parallel/mesh.py render_bands); frame DP is
-the hybrid with one device per group.
+independent once their states are known. The state machine steps through
+all K states in order, then device d renders its contiguous block of K / n
+frames with one launch of each kernel, so frame k equals the k-th
+Engine.step_and_frame from the same state. The hybrid composes this with
+row bands: n_frames groups of n_rows devices, each group rendering its
+block of frames in bands; frame DP is the hybrid with one device per
+group.
+
+Two forms, with equal frames and end state:
+
+- `script_entry` is what one mesh entry runs on its own device, with no
+  exchange and no hand-off (the Engine's path, one CUDA graph per entry on
+  a card, app/loop.py): it scans all K actions from its replica of the
+  state, as the JAX package's replicated lax.scan (frames.py:63-127), then
+  packs its group's block and renders its rows of it
+  (parallel/mesh.py entry_bands);
+- `render_script_dp` / `render_script_hybrid` are the reference: all K
+  states stepped and packed on the scene's device, each group's block
+  copied to its devices and rendered by render_bands.
 
 A mesh is a list of torch.devices (a hybrid mesh a list of such lists);
 devices may repeat, as in parallel/mesh.py. The result is gathered on the
@@ -22,9 +34,12 @@ import torch
 
 from raytracing_cuda_tpu_torch.core.types import Scene
 from raytracing_cuda_tpu_torch.parallel.mesh import (as_mesh, band_rows,
-                                                     devices, render_bands)
+                                                     devices, entry_bands,
+                                                     render_bands)
 from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
-                                                       pack_actions)
+                                                       pack_actions,
+                                                       stack_packs,
+                                                       step_states)
 from raytracing_cuda_tpu_torch.sim.state import FrameState
 
 
@@ -48,7 +63,9 @@ def make_hybrid_mesh(n_frames: int, n_rows: int,
     return [devs[g * n_rows:(g + 1) * n_rows] for g in range(n_frames)]
 
 
-def _blocks(K: int, n: int, axis: str) -> int:
+def frame_blocks(K: int, n: int, axis: str) -> int:
+    """Frames per group when K frames spread over n groups of `axis`;
+    raises where n does not divide K."""
     if K % n:
         raise ValueError(f"{K} frames not divisible over the {n}-device "
                          f"{axis}; render the remainder with single-frame "
@@ -91,7 +108,7 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
         raise ValueError("a hybrid mesh is a non-empty list of equally long "
                          "device lists")
     vecs = pack_actions(action_vecs, None)
-    per = _blocks(len(vecs), len(mesh), "frame axis")
+    per = frame_blocks(len(vecs), len(mesh), "frame axis")
     band_rows(height, len(mesh[0]), interleave)
     coefs, params, nt, ns, cull, states = batch_packs(
         scene, state, vecs, height, width, aspect, tri_clusters,
@@ -105,3 +122,28 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
             mesh=group, height=height, width=width, interleave=interleave,
             cull=cull).to(first, non_blocking=True))
     return torch.cat(blocks), states[-1]
+
+
+def script_entry(scene: Scene, state: FrameState, vecs, sky_pack,
+                 sky_h: int, sky_w: int, *, group: int, row: int,
+                 n_frames: int, n_rows: int, height: int, width: int,
+                 aspect: float | None = None, interleave: int = 1,
+                 tri_clusters=None, sph_clusters=None, t_subs=None,
+                 cull=None):
+    """Entry (group, row) of an n_frames x n_rows mesh, on the device of
+    `scene` (where state, vecs (K, 16), sky_pack and cull lie) → (the K-th
+    state, its rows of its group's frames: (K / n_frames, interleave, sub,
+    width, 3) uint8, see parallel.mesh.entry_bands). It steps all K states
+    from `state`, packs frames group * K / n_frames … of them and renders
+    row part `row` of n_rows (whole frames where n_rows * interleave ==
+    1)."""
+    per = frame_blocks(len(vecs), n_frames, "frame axis")
+    states = step_states(state, vecs, scene.color.device)
+    block = states[group * per:(group + 1) * per]
+    coefs, params, nt, ns, cull = stack_packs(
+        scene, block, height, width, aspect, tri_clusters, sph_clusters,
+        t_subs, cull)
+    return states[-1], entry_bands(
+        coefs, params, nt, ns, block, sky_pack, sky_h, sky_w, entry=row,
+        n=n_rows, height=height, width=width, interleave=interleave,
+        cull=cull)

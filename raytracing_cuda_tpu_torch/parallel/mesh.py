@@ -2,22 +2,32 @@
 raytracing_cuda_tpu/parallel/mesh.py).
 
 The JAX package shards the framebuffer by row bands over a
-jax.sharding.Mesh with shard_map: every device raytraces its band with the
-band's global row offset in the megakernel's params, and the FXAA stencil
-reads one halo row from each neighbouring band through lax.ppermute. Here a
-mesh is a list of torch.devices, one entry per band slot, run from one
-process. A device may repeat: ["cpu"] * n stands in for the JAX tests'
-virtual CPU devices, ["cuda:0"] * n runs n bands one after another on one
-card.
+jax.sharding.Mesh with shard_map: every device steps the replicated state,
+raytraces its band with the band's global row offset in the megakernel's
+params, and the FXAA stencil reads one halo row from each neighbouring
+band through lax.ppermute. Here a mesh is a list of torch.devices, one
+entry per band slot, run from one process. A device may repeat: ["cpu"] *
+n stands in for the JAX tests' virtual CPU devices, ["cuda:0"] * n runs n
+bands one after another on one card.
 
-The frame is derived and packed once, on the device of the scene (the
-Engine's), and the packs go to each band's device. Global chunk c of the frame's
-rows runs on its device: kernel A at row offset c * rows, then the flat
-pair sky lookup and quantize. The last row of chunk c - 1 and the first row
-of chunk c + 1 then move to chunk c's device (zeros at the frame's top and
-bottom, which pass through FXAA), and kernel B's band form filters the
-chunk, judging borders by global row. Every pixel equals the single-device
-frame bit for bit, the JAX package's contract (mesh.py:192-194).
+Two forms of the same frame, equal bit for bit to the single-device frame
+(the JAX package's contract, mesh.py:192-194):
+
+- `entry_bands` is what a mesh entry runs on its own device, with no
+  exchange (the Engine's sharded path, one CUDA graph per entry on a
+  card, app/loop.py): its chunks entry, entry + n, …, each rendered by
+  kernel A with one halo row above and one below recomputed, then the sky
+  lookup and quantize, and kernel B's band form on the halo'd band.
+  `place_bands` then copies each entry's rows into the frame (the gather,
+  one copy per entry).
+- `render_bands` / `filter_bands` are the exchanging reference: the frame
+  is derived and packed once, on the device of the scene, the packs go to
+  each band's device, global chunk c of the frame's rows runs on its
+  device (kernel A at row offset c * rows, then the flat pair sky lookup
+  and quantize), the last row of chunk c - 1 and the first row of chunk
+  c + 1 then move to chunk c's device (zeros at the frame's top and
+  bottom, which pass through FXAA), and kernel B's band form filters the
+  chunk, judging borders by global row.
 
 A band of a `fast` or `oracle` frame runs no megakernel: its chunk is
 `render_base_image_fast` at the chunk's row offset, from the sky blended
@@ -30,6 +40,9 @@ of `_resolve_grouped`, is left behind: the port's sky lookup is per pixel.
 """
 
 from __future__ import annotations
+
+import ctypes
+import os
 
 import torch
 
@@ -174,6 +187,127 @@ def filter_bands(bases, aa, device, sub: int, height: int) -> torch.Tensor:
         on = aa.to(dev)[:, None, None, None]
         outs.append(torch.where(on, out, base).to(device, non_blocking=True))
     return torch.cat(outs, dim=1)
+
+
+def entry_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
+                sky_pack, sky_h: int, sky_w: int, *, entry: int, n: int,
+                height: int, width: int, interleave: int = 1,
+                cull=None) -> torch.Tensor:
+    """Mesh entry `entry` of n: its rows of K frames, filtered, with no
+    exchange → (K, interleave, sub, width, 3) uint8 on the device of
+    `coefs`, chunk entry + j * n at [:, j].
+
+    coefs (K, n, C), params (K, P), `cull`, `sky_pack` and the K states lie
+    on that device. Each chunk's rows and one halo row above and below
+    (none beyond the frame's top or bottom, where a zero row stands in and
+    is never read) are one launch of kernel A's band form, then the sky
+    lookup and quantize (bases_from_packs); kernel B's band form filters
+    the halo'd band and each frame's `aa` flag picks FXAA or the base rows
+    on the device. Rays come from global rows, so the halo rows equal the
+    neighbouring chunks' edge rows bit for bit: recomputing them replaces
+    the exchange of filter_bands. One chunk (n * interleave == 1) is the
+    whole frame, filtered by kernel B's K-frame form."""
+    sub = band_rows(height, n, interleave)
+    chunks = n * interleave
+    aa = torch.stack([st.aa for st in states])[:, None, None, None]
+    outs = []
+    for j in range(interleave):
+        c = j * n + entry
+        lo, hi = max(c * sub - 1, 0), min((c + 1) * sub + 1, height)
+        base = bases_from_packs(coefs, params, n_tri_rows, n_sph_rows,
+                                sky_pack, sky_h, sky_w, states, hi - lo,
+                                width, row0=lo, total_h=height, cull=cull)
+        if chunks == 1:
+            out = fxaa_batch(base)
+        else:
+            zero = torch.zeros_like(base[:, :1])
+            ext = torch.cat([zero] * (c == 0) + [base]
+                            + [zero] * (c == chunks - 1), dim=1)
+            out = fxaa_ext(ext, c * sub, height)
+            base = ext[:, 1:-1]
+        outs.append(torch.where(aa, out, base))
+    return torch.stack(outs, dim=1) if interleave > 1 else outs[0][:, None]
+
+
+def place_bands(frames: torch.Tensor, bands: torch.Tensor, entry: int,
+                n: int) -> None:
+    """The gather: write entry_bands' rows of mesh entry `entry` of n,
+    (K, interleave, sub, W, 3), into the K frames (K, H, W, 3), contiguous,
+    on any device. The entry's chunks lie at one stride in the frames
+    (chunk j * n + entry of frame k at block k * interleave + j of the
+    frames' n-row-band view), so this is one copy: a plain one where those
+    rows are contiguous, else, between CUDA tensors, one 2-D memcpy
+    (copy_rows) and not a copy kernel."""
+    K, il, sub = bands.shape[:3]
+    dst = frames.view(K * il, n, sub, *frames.shape[2:])[:, entry]
+    src = bands.reshape(K * il, sub, *bands.shape[3:])
+    if dst.is_contiguous() or "cpu" in (dst.device.type, src.device.type):
+        dst.copy_(src, non_blocking=True)
+    else:
+        copy_rows(dst, src)
+
+
+_CUDART: dict = {}
+
+
+def _cudart() -> ctypes.CDLL:
+    """The CUDA runtime PyTorch loaded (found by its soname; the toolkit's
+    where PyTorch links it statically), for the 2-D copy PyTorch does not
+    issue."""
+    if "lib" not in _CUDART:
+        try:
+            lib = ctypes.CDLL(
+                f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+        except OSError:
+            lib = ctypes.CDLL(os.path.join(
+                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "lib64",
+                "libcudart.so"))
+        lib.cudaMemcpy2DAsync.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+            ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.cudaMemcpy2DAsync.restype = ctypes.c_int
+        lib.cudaGetErrorString.argtypes = [ctypes.c_int]
+        lib.cudaGetErrorString.restype = ctypes.c_char_p
+        _CUDART["lib"] = lib
+    return _CUDART["lib"]
+
+
+CUDA_MEMCPY_DEFAULT = 4     # cudaMemcpyDefault: the pointers say where
+
+
+def copy_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst ← src between CUDA tensors of one shape and type (B, ...), each
+    [b] a contiguous block and the blocks at a uniform stride: one
+    cudaMemcpy2DAsync (local, or peer between cards) on the source device's
+    current stream, ordered as Tensor.copy_ orders a copy between devices:
+    after the work queued on both devices' current streams, and before
+    what is queued on the destination's next."""
+    if (dst.shape != src.shape or dst.dtype != src.dtype
+            or not (dst[0].is_contiguous() and src[0].is_contiguous())):
+        raise ValueError(f"copy_rows takes blocks of one shape and type, "
+                         f"got {tuple(dst.shape)} {dst.dtype} and "
+                         f"{tuple(src.shape)} {src.dtype}")
+    size = dst.element_size()
+    other = dst.device != src.device
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device)
+        if other:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dst.device))
+            stream.wait_event(ready)
+        lib = _cudart()
+        err = lib.cudaMemcpy2DAsync(
+            dst.data_ptr(), dst.stride(0) * size, src.data_ptr(),
+            src.stride(0) * size, src[0].numel() * size, src.shape[0],
+            CUDA_MEMCPY_DEFAULT, stream.cuda_stream)
+        if err:
+            raise RuntimeError(f"cudaMemcpy2DAsync failed: "
+                               f"{lib.cudaGetErrorString(err).decode()}")
+        if other:
+            done = torch.cuda.Event()
+            done.record(stream)
+            torch.cuda.current_stream(dst.device).wait_event(done)
 
 
 def render_bands_plain(scene: Scene, state: FrameState,

@@ -203,18 +203,33 @@ def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
     when None)."""
     if len(vecs) < 1:
         raise ValueError("a batch needs at least one frame")
-    dev = scene.color.device
-    vecs = torch.as_tensor(vecs, dtype=torch.float32).to(dev)
-    state = state_to(state, dev)
+    states = step_states(state, vecs, scene.color.device)
+    return (*stack_packs(scene, states, height, width, aspect, tri_clusters,
+                         sph_clusters, t_subs, cull), states)
+
+
+def step_states(state: FrameState, vecs, device) -> list:
+    """The states after each of the packed (K, 16) actions vecs (numpy or a
+    tensor), stepped in order on `device` (the scan of pipeline.py:201-206)
+    → K states."""
+    vecs = torch.as_tensor(vecs, dtype=torch.float32).to(device)
+    state = state_to(state, device)
     states = []
     for av in vecs:
         state = animate_packed(state, av)
         states.append(state)
+    return states
+
+
+def stack_packs(scene: Scene, states, height: int, width: int,
+                aspect: float | None = None, tri_clusters=None,
+                sph_clusters=None, t_subs=None, cull=None):
+    """Each state's frame_packs, stacked → (coefs (K, n, N_CHANNELS),
+    params (K, N_PARAMS), n_tri_rows, n_sph_rows, cull)."""
     packs = [frame_packs(scene, st, height, width, aspect, tri_clusters,
                          sph_clusters, t_subs, cull) for st in states]
-    coefs = torch.stack([p[0] for p in packs])
-    params = torch.stack([p[1] for p in packs])
-    return coefs, params, *packs[0][2:], states
+    return (torch.stack([p[0] for p in packs]),
+            torch.stack([p[1] for p in packs]), *packs[0][2:])
 
 
 def bases_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,

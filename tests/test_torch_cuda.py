@@ -26,7 +26,8 @@ import torch
 from chip_smoke import (CASES, EXTREME, GOLDEN_OFF_FRAC, GOLDEN_RMSE,
                         PACK_TRIG_ULP, POSES, golden_stats, halo_bands,
                         make_state, pack_differences, random_actions,
-                        rays_apart, states_equal, varied_actions)
+                        rays_apart, states_equal, toggling_actions,
+                        varied_actions)
 from raytracing_cuda_tpu_torch import __main__ as cli
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.core.types import to_device
@@ -441,18 +442,129 @@ def test_sharded_frame_matches_engine(dev, name):
 
 
 def test_render_script_dp_and_hybrid_match_sequence(dev):
-    acts = varied_actions(8)
+    """Frame DP on ["cuda:0"] * 2 and the 2 x 2 hybrid: three calls of 16
+    frames from one state (eager, the capture, a replay of one CUDA graph
+    per entry) each equal 16 step_and_frame calls of the single-device
+    graph Engine, frames and end state, and every replica ends at that
+    state."""
+    acts = toggling_actions(16, seed=12)
     eng = small_engine("cuda", shard_interleave=2)
     st0 = make_state(9.5)
     eng.set_state(st0)
     seq = torch.stack([eng.step_and_frame(a, 0.05) for a in acts])
     end = eng.state
-    for kw in (dict(mesh=["cuda:0"] * 2),
-               dict(n_rows=2, mesh=[["cuda:0"] * 2] * 2)):
-        eng.set_state(st0)
-        imgs = eng.render_script_dp(acts, dt=0.05, **kw)
-        assert torch.equal(imgs, seq), kw
-        assert states_equal(eng.state, end)
+    for n, kw in ((2, dict(mesh=["cuda:0"] * 2)),
+                  (4, dict(n_rows=2, mesh=[["cuda:0"] * 2] * 2))):
+        for call in range(3):
+            eng.set_state(st0)
+            imgs = eng.render_script_dp(acts, dt=0.05, **kw)
+            assert torch.equal(imgs, seq), (kw, call)
+            assert states_equal(eng.state, end), (kw, call)
+            reps = eng._replicas[(torch.device("cuda", 0),) * n]
+            assert all(states_equal(live, end) for live in reps.live)
+        assert len(reps.graphs) == 1
+
+
+@pytest.mark.parametrize("interleave", [1, 2])
+@pytest.mark.parametrize("kind", ["frame", "preview", "batch"])
+def test_sharded_graph_replay_equals_eager_and_single(dev, kind, interleave):
+    """A sharded Engine on ["cuda:0"] * 4 over 60 frames (64 in batches of
+    8) with a preset change and an FXAA toggle: every call after the first
+    replays one CUDA graph per entry; each equals the exchanging eager step
+    (Engine._step_render: render_bands) from the same state and the
+    single-device graph Engine's call, frames and states bit for bit, and
+    every replica equals that state after every call."""
+    k = 8 if kind == "batch" else 1
+    kw = dict(preview=2 if kind == "preview" else 1,
+              shard_interleave=interleave)
+    eng = small_engine("cuda", sharded=["cuda:0"] * 4, **kw)
+    one = small_engine("cuda", **kw)
+    n = 64 if k > 1 else 60
+    acts = toggling_actions(n, seed=11)
+    dts = [0.02 + 0.01 * (i % 5) for i in range(n)]
+    call = {"frame": lambda e, a, d: e.step_and_frame(a[0], d[0]),
+            "preview": lambda e, a, d: e.step_and_frame_preview(a[0], d[0]),
+            "batch": lambda e, a, d: e.step_and_frame_batch(a, d)}[kind]
+    st = tsim.clone_state(eng.state)
+    kept = []
+    for i in range(0, n, k):
+        a, d = acts[i:i + k], dts[i:i + k]
+        got = call(eng, a, d)
+        st, want = eng._step_render(kind, st,
+                                    eng._upload(pack_actions(a, d)))
+        assert torch.equal(got, want), i
+        assert torch.equal(got, call(one, a, d)), i
+        assert states_equal(eng.state, st) and states_equal(one.state, st)
+        for live in eng._replicas[tuple(eng.mesh)].live:
+            assert states_equal(live, st), i
+        kept.append((got, want.clone()))
+    graphs = eng._replicas[tuple(eng.mesh)].graphs
+    assert set(graphs) == {("bands", k)} and len(graphs["bands", k]) == 4
+    assert len({g.out.data_ptr() for g in graphs["bands", k]}) == 4
+    assert all(torch.equal(g, w) for g, w in kept)
+
+
+def test_sharded_replay_counts_band_launches_only(dev):
+    eng = small_engine("cuda", sharded=["cuda:0"] * 4)
+    for _ in range(2):                   # eager, then the capture
+        eng.step_and_frame()
+    torch.cuda.synchronize()
+    names = ("launches", "frames")
+    before = {(f.__name__, a): getattr(f, a, 0) for f in
+              (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
+               fxaa.fxaa, fxaa.fxaa_batch, fxaa.fxaa_ext) for a in names}
+    for _ in range(3):
+        eng.step_and_frame()
+    after = {(f.__name__, a): getattr(f, a, 0) for f in
+             (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
+              fxaa.fxaa, fxaa.fxaa_batch, fxaa.fxaa_ext) for a in names}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {("raytrace_planes_batch", "launches"): 12,
+                     ("raytrace_planes_batch", "frames"): 12,
+                     ("fxaa_ext", "launches"): 12,
+                     ("fxaa_ext", "frames"): 12}, moved
+
+
+def test_sharded_replay_never_syncs(dev):
+    """The sharded graph path (uploads, replays, the gather's 2-D copies)
+    and render_script_dp's replay run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    eng = small_engine("cuda", sharded=["cuda:0"] * 4, shard_interleave=2,
+                       preview=2)
+    dp = small_engine("cuda")
+    acts = random_actions(8, seed=13)
+    for _ in range(2):                   # eager, then the capture
+        eng.step_and_frame(acts[0], 0.05)
+        eng.step_and_frame_batch(acts)
+        dp.render_script_dp(acts, dt=0.05, n_rows=2,
+                            mesh=[["cuda:0"] * 2] * 2)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step_and_frame(acts[1], 0.05)
+        eng.step_and_frame_preview(acts[2], 0.05)
+        eng.step_and_frame_batch(acts)
+        dp.render_script_dp(acts, dt=0.05, n_rows=2,
+                            mesh=[["cuda:0"] * 2] * 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+def test_copy_rows_equals_strided_copy(dev):
+    """The gather's 2-D memcpy against Tensor.copy_ into the same strided
+    rows, and its refusals."""
+    from raytracing_cuda_tpu_torch.parallel.mesh import copy_rows
+
+    src = _noise((6, 7, 11), 14).to(dev)
+    frames = torch.zeros((6, 3, 7, 11, 3), dtype=torch.uint8, device=dev)
+    want = frames.clone()
+    want[:, 1].copy_(src)
+    copy_rows(frames[:, 1], src)
+    assert torch.equal(frames, want)
+    with pytest.raises(ValueError):
+        copy_rows(frames[:, 1, :6], src)
 
 
 # --- the `fast` and `oracle` paths, the preview and the readback ---
