@@ -12,9 +12,13 @@ stderr as JSON.
 
 Every reading is taken twice: by the host clock around n frames enqueued
 and one end sync, as bench.py reads it, and by CUDA events recorded on the
-stream around the same frames (`*_events` keys; absent on the CPU). The
-loop is bound by the host, whose speed varies between runs of one machine,
-so both are printed and nothing is ranked by either; the A/B
+stream around the same frames (`*_events` keys; absent on the CPU). On a
+card every call timed here is a CUDA graph replay once warm: the loop's
+`step_and_frame` and `step_and_frame_batch`, and the `frame()` calls that
+the frozen configurations (1, 2, 3, 4 and 4c) time, which render the
+state set without stepping it. The host enqueues a replay in far less
+time than the device runs it, so the CUDA events read the device's time
+per frame; the card moves between two speeds within a run, so the A/B
 configurations interleave their arms and report medians.
 
 Runs on the first CUDA card unless `--device cpu` is given, and raises

@@ -40,17 +40,25 @@ Phases (any failure exits non-zero):
      interleave 1 and 2, 60 frames, 60 preview-2 frames and 8 batches of
      K = 8 against the eager step and the single-device graph Engine,
      frames, states and every replica bit for bit; the golden states
-     through the sharded graphs; Engine.render_script_dp frame DP and
+     through the sharded graphs; the sharded frame() (one graph per entry
+     rendering its rows of its replica, unstepped) against the exchanging
+     eager frame and the single-device frame() at the golden states and
+     the worst pose; Engine.render_script_dp frame DP and
      hybrid (eager, capture, replay) against step_and_frame; the replays
      under sync debug mode "error"; each entry's graph by replay, host ms
      per call, the host's API calls per call (profiler: 4 graph launches,
-     at most 9 copies, no kernel), each graph pool's memory, the gather,
+     at most 9 copies, no kernel; a frame() call 4 graph launches and no
+     kernel), each graph pool's memory, the gather,
      render_script_dp fps against run(batch=8), and `record --dp` on a
      one-card machine;
   9. the `fast` and `oracle` render paths and the window's pieces at
      1280x720: Engine(path=...) frames for the golden states against the
      720p goldens and the megakernel path's frames, `fast` at two chunk
-     sizes, sky_cache=False, a row-sharded `fast` Engine, and the CLI's
+     sizes, sky_cache=False (its frame() graph against the eager frame,
+     its step, preview 2 and batch of 3 graphs against the eager device
+     step, the replays under sync debug mode "error", device ms by replay,
+     host ms per call, API calls per call, pools), a row-sharded `fast`
+     Engine, and the CLI's
      `--path fast|oracle` and `window`; then the viewer's loop without a
      display: step_and_frame_preview against the box downsample of the full
      frame, and 30 frames through the readback ring, with both kernels'
@@ -70,7 +78,8 @@ Phases (any failure exits non-zero):
      its parity gate must pass), __torch_entry__.dryrun_multichip(8) on
      eight entries of the card and entry(), the worst-state probe over a
      3 x 4 sub-grid, one soak segment of 120 frames; the kernels' launch
-     counters are read around each;
+     counters are read around each, and its frozen configurations are
+     printed beside the frame() graph's replay at the worst pose;
  12. the arms at 1280x720: at the worst pose and island_morning every arm
      of kernel A (csrc/raytrace_arms.cu) against the same arm of its plain
      version bit for bit, and the arms that compute the shipped function
@@ -82,15 +91,20 @@ Phases (any failure exits non-zero):
      synthetic panoramas), and one short tail_probe_torch.py and
      readback_fps_torch.py run;
  13. the frame step on the card: Engine(device="cuda") holds its scene,
-     cull table and state there; the golden states at 1280x720 and
-     1920x1080 through step_and_frame's CUDA graph against the goldens and
-     the eager frame; 60 frames (K = 1), 8 batches of K = 8 and 60 preview-2
-     frames by graph replay against the eager device step, frames and
-     states bit for bit; the eager step under sync debug mode "error"; the
-     step + packs' and the whole graph's device time by replay, host ms per
-     call, Engine.run fps with p50/p99, the device-busy share and the
-     host-to-device copies per frame by profiler, the CPU Engine's host
-     half;
+     cull table and state there; the golden states and the worst pose at
+     1280x720 and 1920x1080 through step_and_frame's and frame()'s CUDA
+     graphs against the goldens and the eager frame; 60 frames (K = 1), 8
+     batches of K = 8 and 60 preview-2 frames by graph replay against the
+     eager device step, frames and states bit for bit; step() by its
+     graph against the eager step; fast_forward over 1,000 vectors (a
+     step() replay per vector) against the eager step once per vector,
+     in turns with it, and a cold one against 256-step chunk graphs (the
+     JAX Engine's scan form), capture included; the eager step and every replay under sync debug mode
+     "error"; the step + packs' and the whole graph's device time by
+     replay, host ms per call, Engine.run fps with p50/p99, the
+     device-busy share and the host-to-device copies per frame by
+     profiler, the CPU Engine's host half; frame() by replay, in turns
+     with bench_torch's worst-pose timer, and its FXAA A/B;
  14. a JSON line per kernel form (each with its bound, from this run's
      inputs), the card line, and the final status line.
 """
@@ -506,11 +520,12 @@ def profiled(fn, reps: int, knames):
     return None
 
 
-def profiled_calls(fn, reps: int):
+def profiled_calls(fn, reps: int, need: str = "GraphLaunch"):
     """({CUDA runtime or driver call: count}, {device copy: count}) of a
     torch.profiler trace of reps calls of fn(): what the host issued, and
     the copies the device ran. Traced again (up to PROFILE_TRIES traces)
-    while the trace holds no CUDA graph launch; None if none does."""
+    while the trace holds no call named with `need` (a CUDA graph launch by
+    default); None if none does."""
     from raytracing_cuda_tpu_torch.utils import profiling
 
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -530,11 +545,59 @@ def profiled_calls(fn, reps: int):
                 api[e["name"]] = api.get(e["name"], 0) + 1
             elif e.get("cat") == "gpu_memcpy":
                 copies[e["name"]] = copies.get(e["name"], 0) + 1
-        if any("GraphLaunch" in name for name in api):
+        if any(need in name for name in api):
             return api, copies
         print(f"torch.profiler trace {attempt} of {PROFILE_TRIES} holds no "
-              f"CUDA graph launch ({len(api)} API call names)", flush=True)
+              f"{need} call ({len(api)} API call names)", flush=True)
     return None
+
+
+def calls_per(fn, reps: int, need: str = "GraphLaunch"):
+    """Per call of fn(), from profiled_calls over reps calls: {"GraphLaunch",
+    "Memcpy", "LaunchKernel": host API calls whose name holds it} → (that
+    dict, the API counts), or None where no trace holds a `need` call."""
+    got = profiled_calls(fn, reps, need)
+    if got is None:
+        return None
+    api = got[0]
+    return {what: sum(v for k, v in api.items() if what in k) / reps
+            for what in ("GraphLaunch", "Memcpy", "LaunchKernel")}, api
+
+
+def pool_mb(graphs) -> list:
+    """(allocated, reserved) MB each captured graph of a key kept."""
+    return [tuple(round(b / 2 ** 20, 1) for b in g.memory) for g in graphs]
+
+
+def graph_vs_eager(e, kind, n, k, seed):
+    """n frames of seeded actions through e's single-device graph, k per
+    call, each call against e._step_render from the same state → (frames
+    and states bit for bit, snapshots unchanged, no frame overwritten and
+    the graph captured)."""
+    from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
+    from raytracing_cuda_tpu_torch.sim import state as sim
+
+    acts = random_actions(n, seed)
+    dts = [1 / 60 + 0.01 * (i % 4) for i in range(n)]
+    call = {"frame": lambda a, d: e.step_and_frame(a[0], d[0]),
+            "preview": lambda a, d: e.step_and_frame_preview(a[0], d[0]),
+            "batch": e.step_and_frame_batch}[kind]
+    e.set_state(make_state(9.5))
+    st = sim.clone_state(e.state)
+    same = kept_same = True
+    kept = []
+    for i in range(0, n, k):
+        a, d = acts[i:i + k], dts[i:i + k]
+        before = e.state
+        before_copy = sim.clone_state(before)
+        got = call(a, d)
+        st, want = e._step_render(kind, st, e._upload(pack_actions(a, d)))
+        same &= (torch.equal(got, want) and states_equal(e.state, st))
+        kept_same &= states_equal(before, before_copy)
+        kept.append((got, want.clone()))
+    return (same, kept_same,
+            all(torch.equal(g, w) for g, w in kept)
+            and (kind, k) in e._graphs)
 
 
 def from_idle(fn, n: int) -> float:
@@ -1201,7 +1264,7 @@ def main() -> int:
         for aa in (True, False):
             st = make_state(**dict(kw, aa=aa))
             eng.set_state(st)
-            ref = eng.frame()
+            ref = eng._frame_eager()
             for n, il in ((2, 1), (4, 1), (8, 1), (4, 2)):
                 img = render_frame_sharded(
                     eng.scene, st, replicate(sky_pack, [dev]), *SKY_SHAPE,
@@ -1331,6 +1394,40 @@ def main() -> int:
                     f"({torch.equal(img, ref)}) and the golden: rmse "
                     f"{rm:.5f} off>2 {off:.4%}")
 
+    # the sharded frame(): one CUDA graph per entry rendering its rows of
+    # its replica, unstepped, against the exchanging reference and the
+    # single-device frame graph; a replay launches each band form once per
+    # entry and nothing else
+    frame_sh = {}
+    for il in (1, 2):
+        e = eng_sh[il]
+        ok, counts_ok = True, True
+        for name, kw in [*CASES.items(), ("worst_pose", POSES["worst_pose"])]:
+            for x in (e, eng):
+                x.set_state(make_state(**kw))
+            for _ in range(2):
+                reset_counts()
+                img = e.frame()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                if ("render", 1) in e._replicas[tuple(e.mesh)].graphs:
+                    counts_ok &= (
+                        counts["raytrace_megakernel_k8"] == 4 * il
+                        and counts["fxaa_band"] == 4 * il
+                        and counts["raytrace_megakernel"] == 0
+                        and counts["fxaa"] == 0)
+                ok &= (torch.equal(img, e._frame_eager())
+                       and torch.equal(img, eng.frame()))
+        frame_sh[il] = e._replicas[tuple(e.mesh)].graphs["render", 1]
+        require(ok and counts_ok and len(frame_sh[il]) == 4,
+                f"sharded frame() ([cuda:0] * 4, interleave {il}), the 4 "
+                f"golden states and the worst pose, twice each: by one CUDA "
+                f"graph per entry once warm ({len(frame_sh[il])} graphs), "
+                f"equal to the exchanging eager frame and the single-device "
+                f"frame() bit for bit ({ok}); a replay launched kernel A's "
+                f"and kernel B's band forms {4 * il} times each (once per "
+                f"chunk) and nothing else ({counts_ok})")
+
     # frame DP and the hybrid against step_and_frame: three calls (eager,
     # the capture, a replay), frames, end state and every replica
     acts = toggling_actions(16, seed=24)
@@ -1374,6 +1471,8 @@ def main() -> int:
         eng_sh[2].step_and_frame(idle)
         eng_sh[2].step_and_frame_batch(vecs8)
         pv[2].step_and_frame_preview(idle)
+        eng_sh[1].frame()
+        eng_sh[2].frame()
         for label, kw in layouts:
             eng_dp.render_script_dp(vecs8, **kw)
         synced = None
@@ -1382,7 +1481,8 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     require(synced is None, f"the sharded and script graph paths' replays "
-            f"run under torch.cuda.set_sync_debug_mode('error'): {synced}")
+            f"(step calls and frame()) run under "
+            f"torch.cuda.set_sync_debug_mode('error'): {synced}")
 
     # the numbers: each entry's graph by replay, host ms per call, the
     # host's API calls per call, each graph pool's memory, script fps
@@ -1458,6 +1558,30 @@ def main() -> int:
                 f"({per['GraphLaunch']}), at most 9 copies "
                 f"({per['Memcpy']}) and no kernel of its own "
                 f"({per['LaunchKernel']}) per call")
+    # the sharded frame(): each entry's render graph by replay, host ms per
+    # call from an idle device, the host's API calls per call
+    frame_sh_ms = {}
+    for il in (1, 2):
+        e = eng_sh[il]
+        e.set_state(make_state(6.0))
+        got = calls_per(e.frame, 10)
+        require(got is not None and got[0]["GraphLaunch"] == 4
+                and got[0]["LaunchKernel"] == 0,
+                f"a sharded frame() call (interleave {il}) launches 4 CUDA "
+                f"graphs and no kernel (torch.profiler, 10 calls): "
+                f"{got and got[0]}")
+        frame_sh_ms[il] = {
+            "entries": [replay_ms(g.graph, 1, 20) for g in frame_sh[il]],
+            "host_from_idle": statistics.median(from_idle(e.frame, 8)
+                                                for _ in range(5)),
+            "per_call": got[0]}
+        print(f"sharded frame() graphs, interleave {il}, 1280x720 island "
+              f"day 6: each entry's graph by replay "
+              f"{frame_sh_ms[il]['entries']} ms (sum "
+              f"{sum(frame_sh_ms[il]['entries']):.4f}); host ms per call "
+              f"(8 from an idle device, median of 5) "
+              f"{frame_sh_ms[il]['host_from_idle']:.4f}; per call "
+              f"{got[0]} (torch.profiler) [{card}]", flush=True)
     pools = {}
     for label, e in (("single", eng), ("sharded il1", eng_sh[1]),
                      ("sharded il2", eng_sh[2]), ("preview il2", pv[2]),
@@ -1562,7 +1686,8 @@ def main() -> int:
                           "replay_host_ms": replay_host,
                           "loop_vs_graphs_ms": bound_pairs,
                           "api_calls": calls, "pools_mb": pools,
-                          "gather_ms": gather_ms, "script_fps": script_fps}
+                          "gather_ms": gather_ms, "script_fps": script_fps,
+                          "frame_graphs": frame_sh_ms}
 
     # --- 9. the fast and oracle paths, the preview and the readback ---
     phase(9)
@@ -1650,7 +1775,8 @@ def main() -> int:
     require(not mismatch, f"Engine(path=fast, sharded=[cuda:0] * 4) equals "
             f"the unsharded Engine bit for bit; mismatches {mismatch}")
 
-    # sky_cache=False: blend + pack per frame against the static stack
+    # sky_cache=False: blend + pack per frame against the static stack,
+    # eagerly and by its frame() graph
     eng_one_shot = Engine(dataclasses.replace(cfg, sky_cache=False), DEVICE,
                           share_assets_from=eng_path["fast"])
     mismatch = []
@@ -1658,11 +1784,67 @@ def main() -> int:
         st = make_state(**kw)
         eng.set_state(st)
         eng_one_shot.set_state(st)
-        if not torch.equal(eng_one_shot.frame(), eng.frame()):
-            mismatch.append(name)
-    require(not mismatch, f"Engine(sky_cache=False) equals the default "
-            f"Engine's frame bit for bit; mismatches {mismatch}")
-    del eng_one_shot, eng_fast_sh, chunked
+        ref = eng._frame_eager()
+        for _ in range(2):
+            if not (torch.equal(eng_one_shot._frame_eager(), ref)
+                    and torch.equal(eng_one_shot.frame(), ref)):
+                mismatch.append(name)
+    require(not mismatch and ("render", 1) in eng_one_shot._graphs,
+            f"Engine(sky_cache=False) equals the default Engine's eager "
+            f"frame bit for bit, eagerly and by its frame() graph (each "
+            f"state twice); mismatches {mismatch}")
+    # its step calls as CUDA graphs: step + the one-shot render_frame
+    one_shot_pv = Engine(dataclasses.replace(cfg, sky_cache=False, preview=2),
+                         DEVICE, share_assets_from=eng_path["fast"])
+    for kind, n, k, e in (("frame", 12, 1, eng_one_shot),
+                          ("preview", 12, 1, one_shot_pv),
+                          ("batch", 12, 3, eng_one_shot)):
+        same, snap, kept = graph_vs_eager(e, kind, n, k, seed=26)
+        require(same and snap and kept,
+                f"sky_cache=False {kind} (K={k}"
+                f"{', preview 2' if kind == 'preview' else ''}): {n} frames "
+                f"by CUDA graph replay equal the eager device step bit for "
+                f"bit, frames and states ({same}); states read before a "
+                f"call unchanged ({snap}); no frame overwritten ({kept})")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng_one_shot.step_and_frame()
+        eng_one_shot.step_and_frame_batch([Action.idle()] * 3)
+        one_shot_pv.step_and_frame_preview()
+        eng_one_shot.frame()
+        synced = None
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(synced is None, f"the sky_cache=False graphs' replays run under "
+            f"torch.cuda.set_sync_debug_mode('error'): {synced}")
+    eng_one_shot.set_state(make_state(6.0))
+    one_shot = {}
+    for label, key, call in (
+            ("frame()", ("render", 1), eng_one_shot.frame),
+            ("step_and_frame", ("frame", 1), eng_one_shot.step_and_frame)):
+        got = calls_per(call, 10)
+        require(got is not None and got[0]["GraphLaunch"] == 1
+                and got[0]["LaunchKernel"] == 0,
+                f"a sky_cache=False {label} call launches one CUDA graph and "
+                f"no kernel (torch.profiler, 10 calls): {got and got[0]}")
+        one_shot[label] = {
+            "replay_ms": replay_ms(eng_one_shot._graphs[key].graph, 1, 20),
+            "host_from_idle": statistics.median(from_idle(call, 8)
+                                                for _ in range(5)),
+            "per_call": got[0]}
+    one_shot["pools_mb"] = {
+        f"{label} {key}": pool_mb([g])
+        for label, e in (("one-shot", eng_one_shot),
+                         ("one-shot preview", one_shot_pv))
+        for key, g in e._graphs.items()}
+    print(f"sky_cache=False graphs 1280x720 island day 6: frame() and "
+          f"step_and_frame by replay, host ms per call (8 from an idle "
+          f"device, median of 5), API calls per call; each pool "
+          f"(allocated, reserved) MB: {one_shot} [{card}]", flush=True)
+    del eng_one_shot, one_shot_pv, eng_fast_sh, chunked
 
     # the CLI on these paths, and the window where pygame is absent
     with tempfile.TemporaryDirectory() as tmp:
@@ -1782,7 +1964,8 @@ def main() -> int:
           f"{loop_ms['ring_preview4']}, beside Engine.run(30) "
           f"{loop_ms['run']} in all with no readback [{card}]", flush=True)
     report["paths"] = {"stats": path_stats, "frame_ms": path_ms,
-                       "loop_ms": loop_ms, "ring_counts": ring_counts}
+                       "loop_ms": loop_ms, "ring_counts": ring_counts,
+                       "one_shot": one_shot}
 
     # --- 10. other sizes: 1920x1080 against its goldens, 640x480 ---
     phase(10)
@@ -1954,11 +2137,30 @@ def main() -> int:
     import __torch_entry__ as torch_entry
     from experiments import soak_torch, worst_state_probe_torch
 
-    out = io.StringIO()
+    out, err = io.StringIO(), io.StringIO()
     reset_counts()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = bench_torch.main(["--size", f"{W}x{H}", "--frames", "60"])
     counts = read_counts()
+    sys.stderr.write(err.getvalue())
+    # its details, the last JSON object it logs, against the frame() graph
+    # by replay at the worst pose right after it: the frozen
+    # configurations time frame() calls, each now one graph replay
+    text = err.getvalue()
+    bench_details = json.loads(text[text.rindex("\n{\n") + 1:])
+    eng.set_state(bench_torch.preset_state(day=17.6, yaw=315.0))
+    eng.frame()
+    worst_replay = replay_ms(eng._graphs[("render", 1)].graph, 1, 10)
+    frozen = {k: bench_details.get(k) for k in (
+        "mountains_640x480_noaa_ms_events", "island_sea_sweep_ms_events",
+        "fxaa_on_ms_events", "fxaa_off_ms_events", "fxaa_cost_ms_events",
+        "time_of_day_ms_events", "low_sun_worst_ms_events")}
+    print(f"bench_torch.main's frozen configurations (CUDA events, ms per "
+          f"frame() call): {frozen}; the frame() graph by replay at the "
+          f"worst pose right after: {worst_replay:.4f} ms, so "
+          f"low_sun_worst_ms_events reads "
+          f"{frozen['low_sun_worst_ms_events'] / worst_replay - 1:+.2%} of "
+          f"it [{card}]", flush=True)
     lines = out.getvalue().strip().splitlines()
     require(len(lines) == 1, f"bench_torch prints one line on stdout "
             f"({len(lines)})")
@@ -1977,6 +2179,7 @@ def main() -> int:
             f"bench_torch's configurations went through both kernels: "
             f"{counts}")
     report["bench_torch"] = bench
+    report["bench_torch_frozen"] = dict(frozen, worst_replay_ms=worst_replay)
 
     reset_counts()
     torch_entry.dryrun_multichip(8, DEVICE)
@@ -2165,53 +2368,46 @@ def main() -> int:
         e.set_state(make_state(6.0))
         for _ in range(2):                # eager (the warm-up), the capture
             e.step_and_frame(idle, 0.0)
-        for name, kw in CASES.items():
+            e.frame()
+        for name, kw in [*CASES.items(), ("worst_pose", POSES["worst_pose"])]:
             # an idle step of dt 0 keeps each golden state's clock, sea and
             # toggles; its yaw is re-wrapped by fmod(yaw + 360, 360)
             e.set_state(make_state(**kw))
             reset_counts()
             img = e.step_and_frame(idle, 0.0)
             counts = read_counts()
-            eager = e.frame()
+            eager = e._frame_eager()
+            # frame(): the render-only graph, from the state set and from
+            # the state the step left
+            frames_ok, frame_counts = torch.equal(img, eager), []
+            for st in (None, make_state(**kw)):
+                if st is not None:
+                    e.set_state(st)
+                    ref = e._frame_eager()
+                reset_counts()
+                got = e.frame()
+                frame_counts.append(read_counts())
+                frames_ok &= torch.equal(got, eager if st is None else ref)
+            launched = all(c["raytrace_megakernel"] == 1 and c["fxaa"] == 1
+                           for c in (counts, *frame_counts))
+            if name == "worst_pose":
+                require(launched and frames_ok,
+                        f"worst pose: {label} frames by the step_and_frame "
+                        f"and frame() graphs (one launch of each kernel per "
+                        f"replay: {launched}) equal the eager frame "
+                        f"({frames_ok})")
+                continue
             rm, off = golden_stats(img.cpu().numpy(), load_png(
                 os.path.join(gold_dir, f"{name}.png")))
             graph_stats[f"golden_{label}_{name}"] = {"rmse": rm,
                                                      "off_frac": off}
-            require(counts["raytrace_megakernel"] == 1
-                    and counts["fxaa"] == 1 and torch.equal(img, eager)
+            require(launched and frames_ok
                     and rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC,
-                    f"{name}: {label} frame by CUDA graph replay (launches "
-                    f"{counts['raytrace_megakernel']}, {counts['fxaa']}) "
-                    f"equals the eager frame of its state "
-                    f"({torch.equal(img, eager)}) and the golden: rmse "
-                    f"{rm:.5f} off>2 {off:.4%}")
-
-    def graph_vs_eager(e, kind, n, k, seed):
-        """n frames of seeded actions through e's graph, k per call, each
-        call against e._step_render from the same state → (frames and
-        states bit for bit, snapshots unchanged, no frame overwritten)."""
-        acts = random_actions(n, seed)
-        dts = [1 / 60 + 0.01 * (i % 4) for i in range(n)]
-        call = {"frame": lambda a, d: e.step_and_frame(a[0], d[0]),
-                "preview": lambda a, d: e.step_and_frame_preview(a[0], d[0]),
-                "batch": e.step_and_frame_batch}[kind]
-        e.set_state(make_state(9.5))
-        st = sim.clone_state(e.state)
-        same = kept_same = True
-        kept = []
-        for i in range(0, n, k):
-            a, d = acts[i:i + k], dts[i:i + k]
-            before = e.state
-            before_copy = sim.clone_state(before)
-            got = call(a, d)
-            st, want = e._step_render(kind, st,
-                                      e._upload(pack_actions(a, d)))
-            same &= (torch.equal(got, want) and states_equal(e.state, st))
-            kept_same &= states_equal(before, before_copy)
-            kept.append((got, want.clone()))
-        return (same, kept_same,
-                all(torch.equal(g, w) for g, w in kept)
-                and (kind, k) in e._graphs)
+                    f"{name}: {label} frames by the step_and_frame and "
+                    f"frame() graphs (one launch of each kernel per replay: "
+                    f"{launched}) equal the eager frame of their state "
+                    f"({frames_ok}) and the golden: rmse {rm:.5f} off>2 "
+                    f"{off:.4%}")
 
     for kind, n, k, e in (
             ("frame", 60, 1, geng),
@@ -2226,7 +2422,142 @@ def main() -> int:
                 f"before a call unchanged ({snap}); no frame overwritten "
                 f"({kept})")
 
-    # the eager step reads nothing back and copies from no pageable memory
+    # step(): one graph of the state step alone (the JAX `_animate`)
+    geng.set_state(make_state(9.5))
+    st = sim.clone_state(geng.state)
+    step_ok = True
+    for a in random_actions(12, 27):
+        got = geng.step(a, 1 / 30)
+        st = sim.animate_packed(st, geng._upload(a.pack(1 / 30)[None])[0])
+        step_ok &= states_equal(got, st)
+    step_calls = calls_per(lambda: geng.step(idle), 10)
+    require(step_ok and ("step", 1) in geng._graphs
+            and step_calls is not None and step_calls[0]["GraphLaunch"] == 1
+            and step_calls[0]["LaunchKernel"] == 0,
+            f"step(): 12 calls (eager, the capture, replays) equal the eager "
+            f"device step bit for bit ({step_ok}); a call launches one CUDA "
+            f"graph and no kernel (torch.profiler, 10 calls): "
+            f"{step_calls and step_calls[0]}")
+
+    # fast_forward at N = 1,000 (record --resume): one step() graph replay
+    # per vector once warm, against the device step run eagerly once per
+    # vector; in turns, the first graph call warming and capturing
+    from raytracing_cuda_tpu_torch.app.loop import _state_copy, _write_state
+    from raytracing_cuda_tpu_torch.render.pipeline import step_states
+
+    n_ff, ff_k = 1000, 256
+    ff_vecs = pack_actions(random_actions(n_ff, 28), [1 / 30] * n_ff)
+    st_ff = make_state(7.9)
+
+    def eager_ff(vecs=ff_vecs):
+        st = sim.state_to(st_ff, dev)
+        for av in geng._upload(vecs):
+            st = sim.animate_packed(st, av)
+        return st
+
+    def host_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    want, _ = host_timed(eager_ff)
+    ff_eng = Engine(cfg, DEVICE, share_assets_from=eng)
+    ff_ms, ff_ok = {"eager": [], "graph": []}, True
+    for _ in range(3):
+        got, ms = host_timed(eager_ff)
+        ff_ms["eager"].append(ms)
+        ff_ok &= states_equal(got, want)
+        ff_eng.set_state(st_ff)
+        got, ms = host_timed(lambda: ff_eng.fast_forward(ff_vecs))
+        ff_ms["graph"].append(ms)
+        ff_ok &= states_equal(got, want)
+    ff_calls = calls_per(lambda: ff_eng.fast_forward(ff_vecs), 1)
+    require(ff_ok and ff_calls is not None
+            and ff_calls[0]["GraphLaunch"] == n_ff
+            and ff_calls[0]["LaunchKernel"] == 0,
+            f"fast_forward over {n_ff} vectors, 3 calls (the first warms "
+            f"and captures): the state equals the eager device step once "
+            f"per vector bit for bit ({ff_ok}); a warm call launches "
+            f"{n_ff} step graphs and no kernel (torch.profiler): "
+            f"{ff_calls and ff_calls[0]}")
+
+    # a cold resume of N = 1,000 both ways, each on a fresh Engine made
+    # before its clock starts: the Engine's (the step graph's warm-up,
+    # capture and 998 replays), against the JAX Engine's _ff_scan form:
+    # one graph of 256 steps from a static (256, 16) buffer, warmed by one
+    # eager step, captured (its instantiation included) and replayed per
+    # full chunk, the 232 left by the fresh Engine's step graph
+    def chunk_form(rest_eng):
+        live = _state_copy(sim.state_to(st_ff, dev), dev)
+        actions = torch.zeros((ff_k, 16), dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        sim.animate_packed(live, geng._upload(ff_vecs[:1])[0])
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _write_state(live, step_states(live, actions, dev)[-1])
+        torch.cuda.synchronize()
+        capture = (time.perf_counter() - t0) * 1e3
+        i = 0
+        while n_ff - i >= ff_k:
+            geng._upload(ff_vecs[i:i + ff_k], out=actions)
+            graph.replay()
+            i += ff_k
+        rest_eng.set_state(live)
+        return rest_eng.fast_forward(ff_vecs[i:]), capture, graph
+
+    cold = {"step_graph": [], "chunk_graph": [], "chunk_capture": []}
+    cold_ok = True
+    for _ in range(2):
+        fresh = Engine(cfg, DEVICE, share_assets_from=eng)
+        fresh.set_state(st_ff)
+        got, ms = host_timed(lambda: fresh.fast_forward(ff_vecs))
+        cold["step_graph"].append(ms)
+        cold_ok &= states_equal(got, want)
+        fresh = Engine(cfg, DEVICE, share_assets_from=eng)
+        (got, capture, chunk), ms = host_timed(lambda: chunk_form(fresh))
+        cold["chunk_graph"].append(ms)
+        cold["chunk_capture"].append(capture)
+        cold_ok &= states_equal(got, want)
+    del fresh
+    require(cold_ok, "a cold fast_forward over 1,000 vectors, by the step "
+            "graph and by 256-step chunk graphs, equals the eager device "
+            "step bit for bit")
+    ms_chunk = replay_ms(chunk, 1, 5)
+    ms_step = replay_ms(ff_eng._graphs[("step", 1)].graph, 1, 20)
+    st_d = sim.state_to(st_ff, dev)
+    av_d = geng._upload(ff_vecs[:1])[0]
+    one_step = calls_per(lambda: sim.animate_packed(st_d, av_d), 1,
+                         need="LaunchKernel")
+    require(one_step is not None, "a torch.profiler trace of one eager "
+            "state step holds its kernel launches")
+    step_nodes = one_step[0]["LaunchKernel"] + one_step[0]["Memcpy"]
+    ff_report = {
+        "n": n_ff, "eager_ms": ff_ms["eager"], "graph_ms": ff_ms["graph"],
+        "eager_ms_per_frame": [m / n_ff for m in ff_ms["eager"]],
+        "graph_ms_per_frame": [m / n_ff for m in ff_ms["graph"]],
+        "cold_ms": cold, "chunk_replay_ms": ms_chunk,
+        "step_replay_ms": ms_step, "nodes_per_step": step_nodes,
+        "pool_mb": pool_mb([ff_eng._graphs[("step", 1)]])}
+    print(f"fast_forward, {n_ff} vectors, host ms per call with its drain "
+          f"in turns (eager device step once per vector; the Engine's, the "
+          f"first call warming and capturing): eager {ff_ms['eager']}, "
+          f"graph {ff_ms['graph']} = ms per skipped frame "
+          f"{[round(m / n_ff, 4) for m in ff_ms['eager']]} against "
+          f"{[round(m / n_ff, 4) for m in ff_ms['graph']]}; cold, on a "
+          f"fresh Engine, in turns: by the step graph {cold['step_graph']}, "
+          f"by 256-step chunk graphs {cold['chunk_graph']} (of which the "
+          f"chunk's warm-up, capture and instantiation of about "
+          f"{ff_k * step_nodes:.0f} nodes {cold['chunk_capture']}); by "
+          f"replay: the chunk {ms_chunk:.4f} ms ({ms_chunk / ff_k:.4f} per "
+          f"step), the step graph {ms_step:.4f} ms; one eager step's "
+          f"launches {one_step[0]}; the step graph's pool (allocated, "
+          f"reserved) MB {ff_report['pool_mb']} [{card}]", flush=True)
+    del chunk
+
+    # the eager step reads nothing back and copies from no pageable
+    # memory, nor do the replays of every single-device graph
     vecs = geng._upload(pack_actions(random_actions(BATCH, 22),
                                      [1 / 60] * BATCH))
     torch.cuda.synchronize()
@@ -2237,15 +2568,20 @@ def main() -> int:
         for kind in ("frame", "batch"):
             st, _ = geng._step_render(kind, st,
                                       vecs if kind == "batch" else vecs[:1])
+        geng._frame_eager()
         geng.step(idle)
         geng.step_and_frame(idle)
+        geng.frame()
+        ff_eng.fast_forward(ff_vecs[:300])
         synced = None
     except RuntimeError as e:
         synced = str(e)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
-    require(synced is None, f"the eager device step and a graph replay run "
-            f"under torch.cuda.set_sync_debug_mode('error'): {synced}")
+    require(synced is None, f"the eager device step and frame, and the "
+            f"replays of step_and_frame, frame(), step() and fast_forward "
+            f"(300 step replays) run under "
+            f"torch.cuda.set_sync_debug_mode('error'): {synced}")
 
     # the numbers: device time of the step + packs and of the whole graph
     # (graph replay), host ms per call, the loop, the device-busy share
@@ -2328,6 +2664,63 @@ def main() -> int:
                        "run": pct, "busy_ms": busy_g, "window_ms": window_g,
                        "htod": htod, "cpu_host_half_ms": cpu_half,
                        "clocks": clocks}
+
+    # frame(): the render-only graph by replay, host ms per call and the
+    # host's API calls per call; in turns with the frozen bench
+    # configurations' own timers (bench_torch.time_frames, configuration
+    # 4c at the worst pose, and ab_frames, configuration 3), which time
+    # frame() calls and so now read the graph
+    render_graph = geng._graphs[("render", 1)]
+    worst_st = bench_torch.preset_state(day=17.6, yaw=315.0)
+    turns = []
+    for _ in range(3):
+        geng.set_state(worst_st)
+        geng.frame()
+        replay = replay_ms(render_graph.graph, 1, 10)
+        turns.append((replay, bench_torch.time_frames(
+            geng, worst_st, n=10, warmup=1).events))
+    over = statistics.median(b / r - 1 for r, b in turns)
+    on, off = bench_torch.ab_frames(
+        geng, bench_torch.preset_state(cam_preset=0, aa=True),
+        bench_torch.preset_state(cam_preset=0, aa=False), n=10, reps=15)
+    geng.set_state(st6)
+    geng.frame()
+    day6 = replay_ms(render_graph.graph, 1, 20)
+    frame_calls = calls_per(geng.frame, 10)
+    require(frame_calls is not None and frame_calls[0]["GraphLaunch"] == 1
+            and frame_calls[0]["LaunchKernel"] == 0,
+            f"a frame() call launches one CUDA graph and no kernel "
+            f"(torch.profiler, 10 calls): {frame_calls and frame_calls[0]}")
+    frame_host = statistics.median(from_idle(geng.frame, 8)
+                                   for _ in range(5))
+    render_pool = pool_mb([render_graph])
+    print(f"frame() graph 1280x720 island: device ms by replay at day 6 "
+          f"{day6:.4f}; at the worst pose, in turns with bench_torch's "
+          f"configuration 4c timer (replay, time_frames by CUDA events) "
+          f"{turns}, the timer {over:+.2%} of the replay (median); "
+          f"configuration 3's A/B in the same Engine: FXAA on "
+          f"{on.events:.4f}, off {off.events:.4f}, cost "
+          f"{on.events - off.events:+.4f} ms (CUDA events); host ms per "
+          f"call (8 from an idle device, median of 5) {frame_host:.4f}; "
+          f"per call {frame_calls[0]}; pool (allocated, reserved) MB "
+          f"{render_pool} [{card}]", flush=True)
+    require(abs(over) <= 0.10,
+            f"bench_torch's worst-pose timer reads the frame() graph: "
+            f"within 10 % of its replay in the same turns ({over:+.2%})")
+    # kernel B runs in the graph whatever the toggle, so the two arms do
+    # the same work: the difference of their medians over 15 interleaved
+    # blocks each
+    cost = on.events - off.events
+    require(-0.05 <= cost <= 0.1,
+            f"bench_torch's FXAA A/B (configuration 3's timer, 15 blocks "
+            f"an arm) reads the graph, where kernel B always runs: a cost "
+            f"of {cost:+.4f} ms, within [-0.05, +0.1]")
+    report["graph"].update(
+        frame={"day6_ms": day6, "worst_turns": turns, "timer_over": over,
+               "fxaa_on_ms": on.events, "fxaa_off_ms": off.events,
+               "host_from_idle_ms": frame_host, "per_call": frame_calls[0],
+               "pool_mb": render_pool},
+        step={"per_call": step_calls[0]}, fast_forward=ff_report)
 
     # --- 14. report ---
     phase(14)

@@ -11,20 +11,29 @@ megakernel, the sky lookup + quantize, and FXAA selected by the state's
 toggle. The one host-to-device copy per frame is the (16,) action vector
 (K of them for a batch), from pinned memory on a card.
 
-On a card, on the static-sky megakernel path (path "auto", sky_cache=True
-or sharded), `step_and_frame`, `step_and_frame_batch` (one graph per K)
-and `step_and_frame_preview` replay CUDA graphs of that device step: the
-first call of each kind and K runs the step eagerly (the warm-up, which
-also builds and loads the kernels), the second captures the same code and
-every call from then on replays it. The graphs read the state from
-buffers of their own and write the new state back into them;
-`Engine.state` hands out a snapshot (a copy made when it is read), and
-each frame returned is a copy of the graphs' output, so no later call
-overwrites it. A failed capture raises: there is no eager fallback on the
-card. A replay adds to each kernel wrapper's launch counter the launches
-its capture recorded.
+On a card every entry point of the megakernel path (path "auto") runs as
+the JAX Engine's jitted programs do, one device program per call: a CUDA
+graph of the same device code. `step_and_frame`, `step_and_frame_batch`
+(one graph per K) and `step_and_frame_preview` are the step + render
+(the JAX `_step_render`, `_step_render_batch`, `_step_render_preview`);
+`frame()` renders the current state without stepping (`_render_only`);
+`step()` is the state step alone (`_animate`), and `fast_forward()` one
+`step()` call per vector (where the JAX Engine scans 256 per dispatch,
+`_ff_scan`; a 256-step graph costs a cold resume more to capture than it
+saves). The first call of each kind and K runs eagerly (the warm-up,
+which also builds and loads the kernels), the second captures the same
+code and every call from then on replays it. The graphs read the state
+from buffers of their own and write the new state back into them (a
+render-only graph writes nothing); `Engine.state` hands out a snapshot
+(a copy made when it is read), and each frame returned is a copy of the
+graphs' output, so no later call overwrites it. A failed capture raises:
+there is no eager fallback on the card. A replay adds to each kernel
+wrapper's launch counter the launches its capture recorded.
+`_frame_eager()` keeps the eager render the frame graphs are held
+against.
 
-A sharded Engine, and `render_script_dp`, run the JAX package's shard_map
+A sharded Engine (its step calls and its `frame()`, which renders without
+stepping), and `render_script_dp`, run the JAX package's shard_map
 programs the same way, one graph per mesh entry per call: every entry
 holds a replica of the state on its device (the JAX package's replicated
 state, in_specs=P()) beside that device's copy of the scene, cull table
@@ -44,17 +53,16 @@ and the CLI's `record` drive it.
 
 config.path "fast" and "oracle" render with the plain PyTorch raytracers
 instead (render/fast.py, render/reference.py) from the sky blended per
-frame, and config.sky_cache=False renders the single-device megakernel
-path through the one-shot `render_frame`; a batch is then a loop of
-single frames, as the JAX package scans them (loop.py:219-230). These
-paths, sharded or not, run the same device step eagerly with no graph:
-`fast` reads a value back per chunk (`bool(mask.any())`), which a capture
-forbids. A sharded Engine always renders from the static stack, as the
-JAX package's (loop.py:129-131), so sky_cache=False does not change it.
-`step_and_frame_preview` renders at full size and box-downsamples on the
-device for the window's readback. `Engine.frame()` renders the current
-state eagerly (for a sharded Engine through parallel/mesh.py
-render_bands, the exchanging reference).
+frame, eagerly, sharded or not: `fast` reads a value back per chunk
+(`bool(mask.any())`), which a capture forbids; their state steps
+(`step`, `fast_forward`) are graphs as on every path. config.sky_cache=False
+renders the single-device megakernel path through the one-shot
+`render_frame` (blend + pack per frame) inside the graphs; a batch is then
+K single frames in one graph, as the JAX package scans them
+(loop.py:219-230). A sharded Engine always renders from the static stack,
+as the JAX package's (loop.py:129-131), so sky_cache=False does not change
+it. `step_and_frame_preview` renders at full size and box-downsamples on
+the device for the window's readback.
 
 The device is always explicit: Engine(config, device="cuda") runs the CUDA
 kernels, device="cpu" their plain PyTorch versions through the same eager
@@ -150,10 +158,11 @@ def _launch_counters() -> list:
 
 class _Graph(NamedTuple):
     """One captured device step of one mesh entry: the graph, its static
-    action input (K, 16), its output (frames or the entry's rows), the
-    launch counts one replay adds, and the device memory the capture kept
-    on the entry's device, (allocated, reserved) bytes: the graph's own
-    memory pool."""
+    action input (K, 16) (None for a render-only graph), its output
+    (frames, the entry's rows, or None for a state step alone), the launch
+    counts one replay adds, and the device memory the capture kept on the
+    entry's device, (allocated, reserved) bytes: the graph's own memory
+    pool."""
 
     graph: object
     actions: torch.Tensor
@@ -368,25 +377,33 @@ class Engine:
         return t.to(self.device, non_blocking=True)
 
     def step(self, action: Action | None = None, dt: float = 1 / 60):
-        """Advance the state machine one frame on the engine device."""
-        av = self._upload((action or Action.idle()).pack(dt)[None])[0]
-        self.state = sim.animate_packed(self.state, av)
+        """Advance the state machine one frame on the engine device (the
+        JAX Engine's `_animate`: a CUDA graph replay on a card once warm)
+        → the new state (Engine.state)."""
+        self._step_one((action or Action.idle()).pack(dt)[None])
         return self.state
+
+    def _step_one(self, vec) -> None:
+        """One state step on the packed (1, 16) action vec, on the single
+        replica: the `step()` call."""
+        self._call(self._single, ("step", 1), vec,
+                   lambda _, state, avs: (sim.animate_packed(state, avs[0]),
+                                          None))
 
     def fast_forward(self, action_vecs, dt: float = 1 / 30):
         """Advance the state machine past a batch of actions without
-        rendering (record --resume). action_vecs: packed (K, 16) vectors or
-        a list of Actions (packed with dt). The device step, once per
-        vector, so the result is exactly that of stepping frame by
-        frame."""
+        rendering (record --resume) → the new state. action_vecs: packed
+        (K, 16) vectors or a list of Actions (packed with dt). One `step()`
+        call per vector (on a card a replay of the step graph once warm),
+        so the state is exactly that of stepping frame by frame. The JAX
+        Engine scans 256 vectors per dispatch (loop.py:254-283); on a card
+        a 256-step graph's capture costs a cold resume of 1,000 frames more
+        than the step graph's replays (PERF.md)."""
         dts = ([dt] * len(action_vecs)
                if isinstance(action_vecs, (list, tuple)) else None)
         vecs = pack_actions(action_vecs, dts)
-        if len(vecs):
-            st = self.state
-            for av in self._upload(vecs):
-                st = sim.animate_packed(st, av)
-            self.state = st
+        for j in range(len(vecs)):
+            self._step_one(vecs[j:j + 1])
         return self.state
 
     def set_state(self, state: sim.FrameState):
@@ -424,51 +441,66 @@ class Engine:
                             interleave=c.shard_interleave,
                             cull=self.cull).to(self.device)
 
-    def _frame_blended(self) -> torch.Tensor:
-        """The current state's frame from the sky blended per frame: the
-        'fast' and 'oracle' paths (in row bands when sharded) and the
-        one-shot megakernel frame of sky_cache=False."""
+    def _render(self, state) -> torch.Tensor:
+        """The frame of `state` on one device: from the static stack, or
+        where the sky is blended per frame (the `fast` and `oracle` paths,
+        and sky_cache=False) the one-shot render_frame with the Engine's
+        cull table (read by the megakernel path only)."""
         c = self.config
-        if self.mesh is not None:
-            return render_bands_plain(
-                self.scene, self.state, self.sky_texels, mesh=self.mesh,
-                height=c.height, width=c.width, chunk=c.chunk,
-                aspect=c.aspect, aa=self.state.aa,
-                interleave=c.shard_interleave).to(self.device)
-        return render_frame(self.scene, self.state, self.sky_texels, c.height,
-                            c.width, chunk=c.chunk, aspect=c.aspect,
-                            path=self.path, tri_clusters=self.tri_clusters,
-                            sph_clusters=self.sph_clusters,
-                            t_subs=self.tri_subs)
-
-    def _render_static(self, state) -> torch.Tensor:
-        """The frame of `state` on the single-device static-sky path."""
-        c = self.config
+        if self.sky_pack is None:
+            return render_frame(self.scene, state, self.sky_texels, c.height,
+                                c.width, chunk=c.chunk, aspect=c.aspect,
+                                path=self.path, tri_clusters=self.tri_clusters,
+                                sph_clusters=self.sph_clusters,
+                                t_subs=self.tri_subs, cull=self.cull)
         coef, params, n_tri, n_sph, _ = self._packs(state)
         base = _base(coef, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                      self.sky_w, state, c.height, c.width, self.cull)
         return apply_fxaa(base, state.aa)
 
     def frame(self) -> torch.Tensor:
-        """Render the current state → (H, W, 3) uint8 on the engine device."""
-        if self.sky_pack is None:
-            return self._frame_blended()
+        """Render the current state → (H, W, 3) uint8 on the engine device,
+        without stepping it (the JAX Engine's `_render_only`). On the
+        megakernel path a call on a card is one CUDA graph replay once warm
+        (one per mesh entry when sharded, each rendering its rows of its
+        replica of the state); the `fast` and `oracle` paths render
+        eagerly."""
+        if self.path != "auto":
+            return self._frame_eager()
         if self.mesh is not None:
-            coef, params, n_tri, n_sph, _ = self._packs()
-            return self._bands(coef[None], params[None], n_tri, n_sph,
-                               [self.state])[0]
-        return self._render_static(self.state)
+            return self._run_sharded(None)[0]
+        return self._run_single("render", None)
+
+    def _frame_eager(self) -> torch.Tensor:
+        """The current state's frame, rendered eagerly: the `fast` and
+        `oracle` frame (in row bands when sharded), and on the megakernel
+        path the reference the frame graphs are held against (for a
+        sharded Engine the exchanging parallel/mesh.py render_bands)."""
+        if self.mesh is None:
+            return self._render(self.state)
+        if self.path != "auto":
+            c = self.config
+            return render_bands_plain(
+                self.scene, self.state, self.sky_texels, mesh=self.mesh,
+                height=c.height, width=c.width, chunk=c.chunk,
+                aspect=c.aspect, aa=self.state.aa,
+                interleave=c.shard_interleave).to(self.device)
+        coef, params, n_tri, n_sph, _ = self._packs()
+        return self._bands(coef[None], params[None], n_tri, n_sph,
+                           [self.state])[0]
 
     def _step_render(self, kind: str, state, avs):
         """The eager device step of one call: from `state`, on packed
         actions avs (K, 16) on the engine device → (the new state, the
         output). kind "frame": one frame; "preview": one frame
         box-downsampled by config.preview; "batch": K frames, each kernel
-        launched once. On the single-device static path this is what the
-        CUDA graph captures; on a sharded Engine it is the exchanging
-        reference the entries' graphs are held against (the state stepped
-        and packed on the engine device, then parallel/mesh.py
-        render_bands)."""
+        launched once (from the static stack; with sky_cache=False K
+        one-shot frames); "render" (single device, avs None): the frame of
+        `state` itself, unstepped. On the single-device megakernel path
+        this is what the CUDA graph captures; on a sharded Engine it is
+        the exchanging reference the entries' graphs are held against (the
+        state stepped and packed on the engine device, then
+        parallel/mesh.py render_bands)."""
         c = self.config
         if self.mesh is not None:
             coefs, params, n_tri, n_sph, _, states = batch_packs(
@@ -481,6 +513,14 @@ class Engine:
             if kind == "preview":
                 img = _box_downsample(img, c.preview)
             return states[-1], img
+        if kind == "render":
+            return state, self._render(state)
+        if kind == "batch" and self.sky_pack is None:
+            imgs = []
+            for av in avs:
+                state = sim.animate_packed(state, av)
+                imgs.append(self._render(state))
+            return state, torch.stack(imgs)
         if kind == "batch":
             coefs, params, n_tri, n_sph, _, states = batch_packs(
                 self.scene, state, avs, c.height, c.width, c.aspect,
@@ -490,19 +530,24 @@ class Engine:
                 coefs, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                 self.sky_w, states, c.height, c.width, self.cull)
         state = sim.animate_packed(state, avs[0])
-        img = self._render_static(state)
+        img = self._render(state)
         if kind == "preview":
             img = _box_downsample(img, c.preview)
         return state, img
 
     def _shard_step(self, entry: int, state, avs):
         """Mesh entry `entry`'s step of a sharded call, on its device: its
-        replica stepped on the K actions avs (K, 16), the packs of the K
-        new states, and its rows of the K frames (entry_bands) → (the K-th
-        state, (K, interleave, sub, W, 3) uint8)."""
+        replica stepped on the K actions avs (K, 16), then its rows of the
+        K new states' frames (_shard_bands) → (the K-th state, the rows)."""
+        return self._shard_bands(entry,
+                                 step_states(state, avs, self.mesh[entry]))
+
+    def _shard_bands(self, entry: int, states):
+        """Mesh entry `entry`'s rows of the K frames of `states`, on its
+        device: the packs of the states and entry_bands → (the K-th state,
+        (K, interleave, sub, W, 3) uint8)."""
         c = self.config
         d = self.mesh[entry]
-        states = step_states(state, avs, d)
         coefs, params, n_tri, n_sph, cull = stack_packs(
             self._scenes[d], states, c.height, c.width, c.aspect,
             self.tri_clusters, self.sph_clusters, self.tri_subs,
@@ -527,14 +572,15 @@ class Engine:
                     dst.copy_(src)
         reps.current = True
 
-    def _capture(self, step, entry: int, live, device, k: int) -> _Graph:
+    def _capture(self, step, entry: int, live, device, k) -> _Graph:
         """A CUDA graph of step(entry, live, actions) on `device` from the
-        replica `live` on a static (k, 16) action buffer, which writes the
-        new state back into the replica; in a memory pool of its own.
-        Raises where the capture fails."""
+        replica `live` on a static (k, 16) action buffer (none where k is
+        None: a render-only step), which writes the new state back into
+        the replica; in a memory pool of its own. Raises where the capture
+        fails."""
         with torch.cuda.device(device):
-            actions = torch.zeros((k, 16), dtype=torch.float32,
-                                  device=device)
+            actions = None if k is None else torch.zeros(
+                (k, 16), dtype=torch.float32, device=device)
             counters = _launch_counters()
             before = [getattr(fn, attr) for fn, attr in counters]
             torch.cuda.synchronize(device)
@@ -560,25 +606,30 @@ class Engine:
         """One call of `step` on every entry of `reps`: entry e steps its
         replica, step(e, replica, actions) → (new state, output), on the
         packed actions vecs (K, 16) uploaded to its device → (the entries'
-        outputs, whether graphs ran). On a card the first call of each key
-        runs eagerly, the second captures one CUDA graph per entry and
-        every call from then on replays them; a graph's output is
-        overwritten by its next replay. Elsewhere every call is eager."""
+        outputs, whether graphs ran). vecs None: a render-only call, which
+        uploads nothing and passes actions None; its step returns the
+        replica itself, so no state is written and the Engine's state
+        snapshot stays. On a card the first call of each key runs eagerly,
+        the second captures one CUDA graph per entry and every call from
+        then on replays them; a graph's output is overwritten by its next
+        replay. Elsewhere every call is eager."""
         self._load(reps)
         replay = self.device.type == "cuda" and key in reps.warm
         reps.warm.add(key)
-        vecs = self._host(vecs)
+        vecs = None if vecs is None else self._host(vecs)
         outs = []
         if replay:
             graphs = reps.graphs.get(key)
             if graphs is None:
                 graphs = reps.graphs[key] = [
-                    self._capture(step, e, live, d, len(vecs))
+                    self._capture(step, e, live, d,
+                                  None if vecs is None else len(vecs))
                     for e, (live, d) in enumerate(zip(reps.live,
                                                       reps.mesh))]
             for g, d in zip(graphs, reps.mesh):
                 with torch.cuda.device(d):
-                    g.actions.copy_(vecs, non_blocking=True)
+                    if vecs is not None:
+                        g.actions.copy_(vecs, non_blocking=True)
                     g.graph.replay()
                 for (fn, attr), n in zip(_launch_counters(), g.counts):
                     setattr(fn, attr, getattr(fn, attr) + n)
@@ -587,20 +638,23 @@ class Engine:
             for e, (live, d) in enumerate(zip(reps.live, reps.mesh)):
                 with (torch.cuda.device(d) if d.type == "cuda"
                       else contextlib.nullcontext()):
-                    new, out = step(e, live, vecs.to(d, non_blocking=True))
+                    new, out = step(e, live, None if vecs is None
+                                    else vecs.to(d, non_blocking=True))
                     _write_state(live, new)
                 outs.append(out)
-        self._state = None                  # the replicas hold it
-        for r in self._holders():
-            r.current = r is reps
+        if vecs is not None:
+            self._state = None              # the replicas hold it
+            for r in self._holders():
+                r.current = r is reps
         return outs, replay
 
-    def _run_static(self, kind: str, vecs):
-        """One call of the device step on the static single-device path,
-        from the current state on packed actions vecs (K, 16) → the output,
+    def _run_single(self, kind: str, vecs):
+        """One call of the device step on the single-device megakernel
+        path, from the current state on packed actions vecs (K, 16) (None:
+        kind "render", the current state's frame, unstepped) → the output,
         which no later call overwrites."""
         outs, replay = self._call(
-            self._single, (kind, len(vecs)), vecs,
+            self._single, (kind, 1 if vecs is None else len(vecs)), vecs,
             lambda _, state, avs: self._step_render(kind, state, avs))
         return outs[0].clone() if replay else outs[0]
 
@@ -608,11 +662,16 @@ class Engine:
         """One call of the sharded device step on packed actions vecs
         (K, 16): every mesh entry steps its replica and renders its rows,
         then the rows are copied into the K frames on the engine device →
-        (K, H, W, 3) uint8."""
+        (K, H, W, 3) uint8. vecs None: each entry renders its rows of its
+        replica's frame, unstepped (K = 1)."""
         c = self.config
-        outs, _ = self._call(self._replicas_for(self.mesh),
-                             ("bands", len(vecs)), vecs, self._shard_step)
-        frames = torch.empty((len(vecs), c.height, c.width, 3),
+        if vecs is None:
+            key, step = ("render", 1), (
+                lambda e, state, _: self._shard_bands(e, [state]))
+        else:
+            key, step = ("bands", len(vecs)), self._shard_step
+        outs, _ = self._call(self._replicas_for(self.mesh), key, vecs, step)
+        frames = torch.empty((key[1], c.height, c.width, 3),
                              dtype=torch.uint8, device=self.device)
         for e, out in enumerate(outs):
             place_bands(frames, out, e, len(self.mesh))
@@ -621,12 +680,12 @@ class Engine:
     def step_and_frame(self, action: Action | None = None,
                        dt: float = 1 / 60) -> torch.Tensor:
         """Step the state machine, then render the new state."""
-        if self.sky_pack is None:
+        if self.path != "auto":
             self.step(action, dt)
             return self.frame()
         vec = (action or Action.idle()).pack(dt)[None]
         if self.mesh is None:
-            return self._run_static("frame", vec)
+            return self._run_single("frame", vec)
         return self._run_sharded(vec)[0]
 
     def step_and_frame_preview(self, action: Action | None = None,
@@ -634,8 +693,8 @@ class Engine:
         """Step, render at full size, box-downsample on the device →
         (H/p, W/p, 3) uint8 on the engine device (p = config.preview): a
         full-size render with a small readback."""
-        if self.sky_pack is not None and self.mesh is None:
-            return self._run_static(
+        if self.path == "auto" and self.mesh is None:
+            return self._run_single(
                 "preview", (action or Action.idle()).pack(dt)[None])
         return _box_downsample(self.step_and_frame(action, dt),
                                self.config.preview)
@@ -643,23 +702,24 @@ class Engine:
     def step_and_frame_batch(self, actions, dts=None) -> torch.Tensor:
         """Step and render K frames → (K, H, W, 3) uint8 on the engine
         device, each kernel launched once for the batch (frame by frame
-        where the sky is blended per frame). actions: a list of Actions
-        (dts per frame, default 1/60 each) or packed (K, 16) vectors
-        carrying their own dt. Frame k equals the k-th of K step_and_frame
-        calls."""
+        where the sky is blended per frame: the `fast` and `oracle` paths,
+        and sky_cache=False, whose K frames are one call). actions: a list
+        of Actions (dts per frame, default 1/60 each) or packed (K, 16)
+        vectors carrying their own dt. Frame k equals the k-th of K
+        step_and_frame calls."""
         if isinstance(actions, (list, tuple)) and dts is None:
             dts = [1 / 60] * len(actions)
         vecs = pack_actions(actions, dts)
         if len(vecs) < 1:
             raise ValueError("a batch needs at least one frame")
-        if self.sky_pack is None:
+        if self.path != "auto":
             imgs = []
-            for av in self._upload(vecs):
-                self.state = sim.animate_packed(self.state, av)
+            for j in range(len(vecs)):
+                self._step_one(vecs[j:j + 1])
                 imgs.append(self.frame())
             return torch.stack(imgs)
         if self.mesh is None:
-            return self._run_static("batch", vecs)
+            return self._run_single("batch", vecs)
         return self._run_sharded(vecs)
 
     def render_script_dp(self, action_vecs, n_devices: int | None = None,

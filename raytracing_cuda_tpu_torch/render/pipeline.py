@@ -89,7 +89,7 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
                  aspect: float | None = None,
                  fxaa_static: bool | None = None, path: str = "fast",
                  tri_clusters=None, sph_clusters=None,
-                 t_subs=None) -> torch.Tensor:
+                 t_subs=None, cull=None) -> torch.Tensor:
     """Render one frame → (height, width, 3) uint8 on the device of
     `sky_texels`, the four panoramas (4, H, W, 3) uint8.
 
@@ -100,8 +100,9 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
     the straight-line parity implementation), or "auto": the megakernel
     (the CUDA kernel on a card, its plain version on the CPU) with the sky
     looked up in the packed per-frame blend; only "auto" reads the cluster
-    arguments. FXAA is kernel B on a card and its plain version on the CPU
-    on every path.
+    arguments and `cull`, the scene's cull table (frame_packs; built for
+    the frame where None, the same table bit for bit). FXAA is kernel B
+    on a card and its plain version on the CPU on every path.
     """
     if aspect is None:
         aspect = width / height
@@ -112,7 +113,7 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
     if path == "auto":
         coef, params, nt, ns, cull = frame_packs(
             scene, state, height, width, aspect, tri_clusters, sph_clusters,
-            t_subs)
+            t_subs, cull)
         r, g, b, mw, mdx, mdy, mdz = raytrace_planes(
             coef.to(dev), params.to(dev), height, width, nt, ns,
             cull=cull.to(dev))

@@ -742,13 +742,18 @@ def test_graph_replay_counts_the_kernels_it_launches(dev):
 
 
 def test_eager_device_step_never_syncs(dev):
-    """The eager step (state step, packs, kernels, sky, FXAA select) and a
-    graph replay run under torch.cuda.set_sync_debug_mode("error"): nothing
-    reads the device back or copies from pageable memory."""
+    """The eager step (state step, packs, kernels, sky, FXAA select), the
+    eager frame, and the replays of step_and_frame, step(), fast_forward's
+    single steps and frame() run under
+    torch.cuda.set_sync_debug_mode("error"): nothing reads the device back
+    or copies from pageable memory."""
     eng = small_engine("cuda", preview=2)
     for _ in range(2):                   # builds, then the capture
         eng.step_and_frame()
     torch.cuda.synchronize()
+    for _ in range(2):                   # step() and frame(): the same
+        eng.step(random_actions(1, seed=7)[0], 0.05)
+        eng.frame()
     vecs = eng._upload(pack_actions(random_actions(8, seed=6), [0.05] * 8))
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
@@ -757,6 +762,7 @@ def test_eager_device_step_never_syncs(dev):
         for kind in ("frame", "preview", "batch"):
             st, out = eng._step_render(kind, st,
                                        vecs if kind == "batch" else vecs[:1])
+        eng._frame_eager()
         eng.step(random_actions(1, seed=7)[0], 0.05)
         eng.fast_forward(random_actions(4, seed=8), 0.05)
         eng.frame()
@@ -793,3 +799,117 @@ def test_capture_failure_raises(dev):
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=600)
     assert "raised" in res.stdout, (res.stdout, res.stderr[-2000:])
+
+
+# --- the other entry points as CUDA graphs: frame(), step(),
+# fast_forward, sky_cache=False ---
+
+
+@pytest.mark.parametrize("aa", [True, False])
+def test_frame_graph_equals_eager_frame(dev, aa):
+    """frame() at the four golden states and the worst pose (FXAA on, or
+    off everywhere): the first call eager, then one CUDA graph replay per
+    call (kernel A and kernel B once each), each equal to _frame_eager()
+    bit for bit; the state snapshot survives and no frame is
+    overwritten."""
+    eng = small_engine("cuda")
+    kept = []
+    for name, kw in [*CASES.items(), ("worst_pose", POSES["worst_pose"])]:
+        eng.set_state(make_state(**dict(kw, aa=aa)))
+        st = eng.state
+        for _ in range(2):
+            before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches)
+            img = eng.frame()
+            torch.cuda.synchronize()
+            if ("render", 1) in eng._graphs:
+                assert (cuda_rt.raytrace_planes.launches - before[0],
+                        fxaa.fxaa.launches - before[1]) == (1, 1), name
+            assert torch.equal(img, eng._frame_eager()), name
+            kept.append((img, img.clone()))
+        assert eng.state is st
+    assert set(eng._graphs) == {("render", 1)}
+    assert all(torch.equal(a, b) for a, b in kept)
+
+
+@pytest.mark.parametrize("interleave", [1, 2])
+def test_sharded_frame_graphs_equal_exchanging_reference(dev, interleave):
+    """A sharded Engine's frame() on ["cuda:0"] * 4: one CUDA graph per
+    entry (its rows of its replica, unstepped) against the exchanging
+    render_bands reference and the single-device frame, bit for bit,
+    before and after sharded step calls."""
+    eng = small_engine("cuda", sharded=["cuda:0"] * 4,
+                       shard_interleave=interleave)
+    one = small_engine("cuda")
+    acts = toggling_actions(6, seed=15)
+    for i, name in enumerate(sorted(CASES)):
+        for e in (eng, one):
+            e.set_state(make_state(**CASES[name]))
+        for _ in range(2):
+            img = eng.frame()
+            assert torch.equal(img, eng._frame_eager()), name
+            assert torch.equal(img, one.frame()), name
+        eng.step_and_frame(acts[i], 0.05)
+        one.step_and_frame(acts[i], 0.05)
+        assert torch.equal(eng.frame(), one.frame()), name
+    graphs = eng._replicas[tuple(eng.mesh)].graphs
+    assert len(graphs["render", 1]) == 4
+
+
+@pytest.fixture(scope="module")
+def ff_engines(dev):
+    """An Engine whose step graph fast_forward replays is captured once,
+    and one to step eagerly."""
+    return small_engine("cuda"), small_engine("cuda")
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 600])
+def test_fast_forward_graphs_equal_eager_stepping(ff_engines, n):
+    """fast_forward over n varied vectors (one step() graph replay per
+    vector once warm) against the device step run eagerly once per
+    vector, bit for bit."""
+    eng, ref = ff_engines
+    acts = random_actions(n, seed=16 + n)
+    st = make_state(7.9)
+    eng.set_state(st)
+    got = eng.fast_forward(acts, 1 / 30)
+    want = tsim.state_to(st, ref.device)
+    for av in ref._upload(pack_actions(acts, [1 / 30] * n)):
+        want = tsim.animate_packed(want, av)
+    assert states_equal(got, want)
+    if n >= 2:
+        assert set(eng._graphs) == {("step", 1)}
+
+
+def test_step_graph_equals_eager_step(dev):
+    eng = small_engine("cuda")
+    acts = random_actions(8, seed=17)
+    st = tsim.clone_state(eng.state)
+    for a in acts:
+        got = eng.step(a, 0.05)
+        st = tsim.animate_packed(st, eng._upload(a.pack(0.05)[None])[0])
+        assert states_equal(got, st)
+    assert ("step", 1) in eng._graphs
+
+
+@pytest.mark.parametrize("kind,k,preview", [("frame", 1, 1),
+                                            ("preview", 1, 2),
+                                            ("batch", 3, 1)])
+def test_sky_cache_off_graphs_equal_eager_step(dev, kind, k, preview):
+    """sky_cache=False (the one-shot render_frame: blend + pack per frame)
+    through its CUDA graph against Engine._step_render from the same
+    state, frames and states bit for bit, over 6 calls."""
+    eng = small_engine("cuda", sky_cache=False, preview=preview)
+    acts = random_actions(6 * k, seed=18)
+    call = {"frame": lambda a: eng.step_and_frame(a[0], 0.05),
+            "preview": lambda a: eng.step_and_frame_preview(a[0], 0.05),
+            "batch": lambda a: eng.step_and_frame_batch(a, [0.05] * k)}[kind]
+    eng.set_state(make_state(9.5))
+    st = tsim.clone_state(eng.state)
+    for i in range(0, 6 * k, k):
+        a = acts[i:i + k]
+        got = call(a)
+        st, want = eng._step_render(kind, st,
+                                    eng._upload(pack_actions(a, [0.05] * k)))
+        assert torch.equal(got, want), i
+        assert states_equal(eng.state, st), i
+    assert (kind, k) in eng._graphs
