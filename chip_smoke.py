@@ -52,17 +52,28 @@ Phases (any failure exits non-zero):
      render_script_dp fps against run(batch=8), and `record --dp` on a
      one-card machine;
   9. the `fast` and `oracle` render paths and the window's pieces at
-     1280x720: Engine(path=...) frames for the golden states against the
-     720p goldens and the megakernel path's frames, `fast` at two chunk
-     sizes, sky_cache=False (its frame() graph against the eager frame,
-     its step, preview 2 and batch of 3 graphs against the eager device
-     step, the replays under sync debug mode "error", device ms by replay,
-     host ms per call, API calls per call, pools), a row-sharded `fast`
-     Engine, and the CLI's
-     `--path fast|oracle` and `window`; then the viewer's loop without a
-     display: step_and_frame_preview against the box downsample of the full
-     frame, and 30 frames through the readback ring, with both kernels'
-     launch counters read around them;
+     1280x720: each path's frame() by CUDA graph replay (every early exit
+     of `fast` masked) against _frame_eager() (the early exits decided on
+     the host) bit for bit at the golden states, the worst pose and the
+     classic scene, and against the 720p goldens and the megakernel
+     path's frames; step_and_frame, preview 2 and a batch of 2 (two
+     replays of the step_and_frame graph) against the eager device step;
+     the replays under sync debug mode "error"; kernel B's launches on
+     each path's step_and_frame graph (counters set to 0 just before);
+     the API calls per call (profiler: a graph launch per frame, no
+     kernel), frame() eager and by replay in turns, host ms per call,
+     capture seconds, graph nodes and pools; `fast` at two chunk sizes; a
+     row-sharded `fast` Engine on [cuda:0] * 4 at interleave 1 and 2, one
+     graph per entry per call (entry_bands_plain), against the exchanging
+     render_bands_plain and the unsharded Engine; sky_cache=False (its
+     frame() graph against the eager frame, its step, preview 2 and batch
+     of 3 graphs against the eager device step, the replays under sync
+     debug mode "error", device ms by replay, host ms per call, API calls
+     per call, pools), and the CLI's `--path fast|oracle` and `window`;
+     then the viewer's loop without a display: step_and_frame_preview
+     against the box downsample of the full frame, and 30 frames through
+     the readback ring, with both kernels' launch counters read around
+     them;
  10. other sizes: Engine(device="cuda") at 1920x1080 against the four
      goldens in tests/golden/tpu/1920x1080/ under the golden contract, and
      at 640x480 (mountains, FXAA off: bench_torch.py's configuration 1)
@@ -106,7 +117,9 @@ Phases (any failure exits non-zero):
      profiler, the CPU Engine's host half; frame() by replay, in turns
      with bench_torch's worst-pose timer, and its FXAA A/B;
  14. a JSON line per kernel form (each with its bound, from this run's
-     inputs), the card line, and the final status line.
+     inputs; kernel B's full-frame and band forms also with their
+     launches on each path's main-path run), the card line, and the final
+     status line.
 """
 
 from __future__ import annotations
@@ -120,6 +133,7 @@ import io
 import json
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -571,9 +585,11 @@ def pool_mb(graphs) -> list:
 
 def graph_vs_eager(e, kind, n, k, seed):
     """n frames of seeded actions through e's single-device graph, k per
-    call, each call against e._step_render from the same state → (frames
-    and states bit for bit, snapshots unchanged, no frame overwritten and
-    the graph captured)."""
+    call, each call against e._step_render from the same state (on the
+    `fast` path with its early exits decided on the host) → (frames and
+    states bit for bit, snapshots unchanged, no frame overwritten and the
+    graph captured: on the `fast` and `oracle` paths a batch replays the
+    step_and_frame graph k times)."""
     from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
     from raytracing_cuda_tpu_torch.sim import state as sim
 
@@ -591,13 +607,14 @@ def graph_vs_eager(e, kind, n, k, seed):
         before = e.state
         before_copy = sim.clone_state(before)
         got = call(a, d)
-        st, want = e._step_render(kind, st, e._upload(pack_actions(a, d)))
+        st, want = e._step_render(kind, st, e._upload(pack_actions(a, d)),
+                                  early_exit=True)
         same &= (torch.equal(got, want) and states_equal(e.state, st))
         kept_same &= states_equal(before, before_copy)
         kept.append((got, want.clone()))
+    key = ("frame", 1) if kind == "batch" and e.path != "auto" else (kind, k)
     return (same, kept_same,
-            all(torch.equal(g, w) for g, w in kept)
-            and (kind, k) in e._graphs)
+            all(torch.equal(g, w) for g, w in kept) and key in e._graphs)
 
 
 def from_idle(fn, n: int) -> float:
@@ -680,9 +697,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(n: int):
-        """Say where the run's time goes: seconds in when phase n starts."""
-        print(f"phase {n} starts {time.perf_counter() - t_start:.1f} s in",
-              flush=True)
+        """Say where the run's time goes: seconds in when phase n starts,
+        and the process's peak resident host memory so far."""
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        print(f"phase {n} starts {time.perf_counter() - t_start:.1f} s in "
+              f"(peak host RSS {peak:.2f} GiB)", flush=True)
 
     # --- 1. environment ---
     if not torch.cuda.is_available():
@@ -1282,7 +1301,9 @@ def main() -> int:
     # with the exchanging eager step it replaced
     from raytracing_cuda_tpu_torch.parallel.mesh import place_bands
     from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
-    from raytracing_cuda_tpu_torch.utils.timing import FrameTimer, replay_ms
+    from raytracing_cuda_tpu_torch.utils.timing import (FrameTimer,
+                                                        graph_nodes,
+                                                        replay_ms)
 
     cfg = RenderConfig(width=W, height=H, procedural_sky_shape=SKY_SHAPE)
     mesh4 = [DEVICE] * 4
@@ -1699,34 +1720,64 @@ def main() -> int:
     eng_path["fast"] = Engine(dataclasses.replace(cfg, path="fast"), DEVICE,
                               share_assets_from=eng_path["oracle"])
     path_stats, path_ms = {}, {}
-    for name, kw in CASES.items():
+    # each path's frame() graph (the first call eager, the second captures),
+    # then held against _frame_eager() (the `fast` early exits decided on
+    # the host) at the goldens and the worst pose
+    for e in eng_path.values():
+        e.set_state(make_state(6.0))
+        for _ in range(2):
+            e.frame()
+    mismatch = []
+    for name, kw in [*CASES.items(), ("worst_pose", POSES["worst_pose"])]:
         st = make_state(**kw)
         eng.set_state(st)
         kernel_img = eng.frame_np()
-        gold = load_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
+        gold = (load_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
+                if name in CASES else None)
         for path, e in eng_path.items():
             e.set_state(st)
-            img = e.frame_np()
+            frame = e.frame()
+            if not torch.equal(frame, e._frame_eager()):
+                mismatch.append(f"{path} {name}")
+            img = frame.cpu().numpy()
             require(img.shape == (H, W, 3) and img.dtype == np.uint8,
                     f"{name}: {path} frame shape {img.shape} {img.dtype}")
-            vs_gold, vs_kernel = (golden_stats(img, gold),
-                                  golden_stats(img, kernel_img))
-            path_stats[f"{path}_{name}"] = {"golden": vs_gold,
-                                            "kernel_path": vs_kernel}
+            vs_kernel = golden_stats(img, kernel_img)
+            path_stats[f"{path}_{name}"] = {"kernel_path": vs_kernel}
+            if gold is None:
+                continue
+            vs_gold = golden_stats(img, gold)
+            path_stats[f"{path}_{name}"]["golden"] = vs_gold
             require(all(rm < GOLDEN_RMSE and off < GOLDEN_OFF_FRAC
                         for rm, off in (vs_gold, vs_kernel)),
                     f"{name}: Engine(path={path}) vs golden rmse "
                     f"{vs_gold[0]:.5f} off>2 {vs_gold[1]:.4%}; vs the "
                     f"megakernel path rmse {vs_kernel[0]:.5f} off>2 "
                     f"{vs_kernel[1]:.4%}")
+    require(not mismatch and all(set(e._graphs) == {("render", 1)}
+                                 for e in eng_path.values()),
+            f"frame() of Engine(path=fast|oracle) by CUDA graph replay "
+            f"equals _frame_eager() bit for bit at the four goldens and the "
+            f"worst pose; mismatches {mismatch}")
+    print(f"Engine(path=fast|oracle) at the worst pose against the "
+          f"megakernel path (rmse, share off by more than 2): "
+          f"{[path_stats[f'{p}_worst_pose'] for p in eng_path]}", flush=True)
     classic_cfg = dataclasses.replace(cfg, scene="classic",
                                       procedural_sky_shape=(1024, 2048))
-    classic_frames = {}
+    classic_frames, mismatch = {}, []
     for path in ("auto", "oracle", "fast"):
         e = Engine(dataclasses.replace(classic_cfg, path=path), DEVICE)
         e.set_state(classic_st)
-        classic_frames[path] = e.frame_np()
-        del e
+        for _ in range(3 if path != "auto" else 1):
+            frame = e.frame()             # eager, capture, replay
+        if path != "auto" and not (torch.equal(frame, e._frame_eager())
+                                   and ("render", 1) in e._graphs):
+            mismatch.append(path)
+        classic_frames[path] = frame.cpu().numpy()
+        del e, frame
+    require(not mismatch, f"classic: frame() by CUDA graph replay equals "
+            f"_frame_eager() bit for bit on the fast and oracle paths; "
+            f"mismatches {mismatch}")
     for path in ("oracle", "fast"):
         rm, off = golden_stats(classic_frames[path], classic_frames["auto"])
         path_stats[f"{path}_classic"] = {"kernel_path": (rm, off)}
@@ -1735,45 +1786,197 @@ def main() -> int:
                 f"{rm:.5f} off>2 {off:.4%}")
     torch.cuda.empty_cache()
 
-    # frame times of both paths (the frame of island_morning, FXAA on):
-    # one frame each after the warm-up one, as a frame takes 0.2-1.3 s
+    # each path's step calls as CUDA graphs against the eager device step:
+    # step_and_frame, its preview (an Engine at preview 2) and a batch of 2
+    # (two replays of the step_and_frame graph)
+    eng_path_pv = {p: Engine(dataclasses.replace(cfg, path=p, preview=2),
+                             DEVICE, share_assets_from=e)
+                   for p, e in eng_path.items()}
+    for path, e in eng_path.items():
+        for kind, n, k, ek in (("frame", 3, 1, e),
+                               ("preview", 2, 1, eng_path_pv[path]),
+                               ("batch", 4, 2, e)):
+            same, snap, kept = graph_vs_eager(ek, kind, n, k, seed=31)
+            require(same and snap and kept,
+                    f"Engine(path={path}) {kind} (K={k}"
+                    f"{', preview 2' if kind == 'preview' else ''}): {n} "
+                    f"frames by CUDA graph replay equal the eager device "
+                    f"step bit for bit, frames and states ({same}); states "
+                    f"read before a call unchanged ({snap}); no frame "
+                    f"overwritten ({kept})")
+    two = [Action.idle()] * 2
+    plain_calls = {p: (("frame()", 1, e.frame),
+                       ("step_and_frame", 1, e.step_and_frame),
+                       ("preview", 1, eng_path_pv[p].step_and_frame_preview),
+                       ("batch of 2", 2,
+                        lambda e=e: e.step_and_frame_batch(two)))
+                   for p, e in eng_path.items()}
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for calls in plain_calls.values():
+            for _, _, call in calls:
+                call()
+        synced = None
+    except RuntimeError as err:
+        synced = str(err)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(synced is None, f"the fast and oracle paths' replays (frame(), "
+            f"step_and_frame, preview 2, a batch of 2) run under "
+            f"torch.cuda.set_sync_debug_mode('error'): {synced}")
+    # this slice's main path: each path's step_and_frame graph, with the
+    # counters set to 0 just before and read just after
+    plain_counts = {}
     for path, e in eng_path.items():
         e.set_state(make_state(6.0))
-        path_ms[path] = cuda_ms(e.frame, 1)
-    print(f"Engine.frame() 1280x720 island_morning: path oracle "
-          f"{path_ms['oracle']:.4f} ms (chunk {cfg.chunk}), path fast "
-          f"{path_ms['fast']:.4f} ms (chunk {cfg.chunk}, a host decision "
-          f"per early exit) (CUDA events) [{card}]", flush=True)
+        reset_counts()
+        for _ in range(2):
+            e.step_and_frame()
+        torch.cuda.synchronize()
+        plain_counts[path] = read_counts()
+        require(plain_counts[path]["fxaa"] == 2
+                and plain_counts[path]["raytrace_megakernel"] == 0,
+                f"2 step_and_frame replays of Engine(path={path}) launched "
+                f"kernel B twice and kernel A never: {plain_counts[path]}")
+    # the times: eager and replay in turns, host ms per call, capture,
+    # nodes and pools; then the API calls per call (torch.profiler), and
+    # the host ms per call again after it
+    for path, calls in plain_calls.items():
+        e = eng_path[path]
+        e.set_state(make_state(6.0))
+        st = e.state
+        g = e._graphs[("render", 1)]
+        turns = {"eager_ms": [], "replay_ms": []}
+        for turn in ("eager_ms", "replay_ms", "replay_ms", "eager_ms"):
+            turns[turn].append(timed(e._frame_eager)[1] if turn == "eager_ms"
+                               else replay_ms(g.graph, 1, 2))
+        path_ms[path] = dict(
+            turns, host_ms=from_idle(e.frame, 3), capture_s=g.seconds,
+            nodes=graph_nodes(lambda: e._step_render("render", st, None)),
+            pools_mb={
+                f"{label} {key}": pool_mb([gr])
+                for label, en in (("frame", e), ("preview", eng_path_pv[path]))
+                for key, gr in en._graphs.items()},
+            capture_s_by_key={
+                f"{label} {key}": round(gr.seconds, 3)
+                for label, en in (("frame", e), ("preview", eng_path_pv[path]))
+                for key, gr in en._graphs.items()})
+        per_call = path_ms[path]["per_call"] = {}
+        for label, k, call in calls:
+            got = calls_per(call, 1)
+            require(got is not None and got[0]["GraphLaunch"] == k
+                    and got[0]["LaunchKernel"] == 0
+                    and got[0]["Memcpy"] <= 2 * k,
+                    f"Engine(path={path}) {label}: {k} CUDA graph "
+                    f"launch{'es' if k > 1 else ''}, no kernel and at most "
+                    f"{2 * k} copies a call (torch.profiler): "
+                    f"{got and got[0]}")
+            per_call[label] = got[0]
+        path_ms[path]["host_ms_after_profiler"] = from_idle(e.frame, 3)
+        print(f"Engine(path={path}) 1280x720 island_morning, chunk "
+              f"{cfg.chunk}: frame() eager (early exits on the host) and by "
+              f"graph replay in turns (CUDA events), host ms per call (3 "
+              f"from an idle device), capture s, graph nodes, API calls per "
+              f"call, pools (allocated, reserved) MB: {path_ms[path]} "
+              f"[{card}]", flush=True)
+    del eng_path_pv
+    torch.cuda.empty_cache()
 
-    # fast: chunk size never changes a pixel
+    # fast: chunk size never changes a pixel (eager, early exits on the host)
     st = make_state(**CASES["mountains_day"])
     chunked, chunks = [], (16384, 65536)
     for chunk in chunks:
         e = Engine(dataclasses.replace(cfg, path="fast", chunk=chunk), DEVICE,
                    share_assets_from=eng_path["fast"])
         e.set_state(st)
-        chunked.append(e.frame())
-        path_ms[f"fast_chunk{chunk}"] = cuda_ms(e.frame, 1)
+        chunked.append(e._frame_eager())
+        path_ms[f"fast_chunk{chunk}"] = timed(e._frame_eager)[1]
     require(torch.equal(*chunked), f"Engine(path=fast) at chunks {chunks}: "
             f"frames equal bit for bit")
-    print("Engine(path=fast).frame() 1280x720 mountains_day: "
+    print("Engine(path=fast)._frame_eager() 1280x720 mountains_day: "
           + ", ".join(f"chunk {c} {path_ms[f'fast_chunk{c}']:.4f} ms"
                       for c in chunks) + f" (CUDA events) [{card}]",
           flush=True)
 
-    # a row-sharded fast Engine against the unsharded one
-    eng_fast_sh = Engine(dataclasses.replace(cfg, path="fast"), DEVICE,
-                         sharded=[DEVICE] * 4,
-                         share_assets_from=eng_path["fast"])
-    mismatch = []
-    for name, kw in CASES.items():
-        st = make_state(**kw)
-        eng_path["fast"].set_state(st)
-        eng_fast_sh.set_state(st)
-        if not torch.equal(eng_fast_sh.frame(), eng_path["fast"].frame()):
-            mismatch.append(name)
-    require(not mismatch, f"Engine(path=fast, sharded=[cuda:0] * 4) equals "
-            f"the unsharded Engine bit for bit; mismatches {mismatch}")
+    # a row-sharded fast Engine: one CUDA graph per mesh entry per call
+    # (entry_bands_plain) against the exchanging render_bands_plain
+    # (_frame_eager, _step_render) and the unsharded Engine's graphs
+    sharded_plain = {}
+    for il, names in ((1, sorted(CASES)), (2, sorted(CASES)[:2])):
+        sh = Engine(dataclasses.replace(cfg, path="fast",
+                                        shard_interleave=il), DEVICE,
+                    sharded=[DEVICE] * 4, share_assets_from=eng_path["fast"])
+        one = eng_path["fast"]
+        mismatch = []
+        for name in names:
+            st = make_state(**CASES[name])
+            sh.set_state(st)
+            one.set_state(st)
+            img = sh.frame()
+            if not (torch.equal(img, sh._frame_eager())
+                    and torch.equal(img, one.frame())):
+                mismatch.append(name)
+        for i, a in enumerate(random_actions(3, seed=32 + il)):
+            before = sh.state
+            got = sh.step_and_frame(a, 0.05)
+            new, want = sh._step_render(
+                "frame", before, sh._upload(pack_actions([a], [0.05])))
+            if not (torch.equal(got, want) and states_equal(sh.state, new)
+                    and torch.equal(got, one.step_and_frame(a, 0.05))):
+                mismatch.append(f"step {i}")
+        graphs = sh._replicas[tuple(sh.mesh)].graphs
+        require(not mismatch and len(graphs[("render", 1)]) == 4
+                and len(graphs[("bands", 1)]) == 4,
+                f"Engine(path=fast, sharded=[cuda:0] * 4, interleave {il}): "
+                f"frame() at {names} and 3 step_and_frame calls by one CUDA "
+                f"graph per entry equal the exchanging render_bands_plain "
+                f"and the unsharded Engine bit for bit; mismatches "
+                f"{mismatch}")
+        reset_counts()
+        sh.step_and_frame()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts["fxaa_band"] == 4 * il
+                and counts["raytrace_megakernel_k8"] == 0,
+                f"a sharded fast step_and_frame (interleave {il}) launched "
+                f"kernel B's band form once per chunk and kernel A never: "
+                f"{counts}")
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sh.step_and_frame()
+            sh.frame()
+            synced = None
+        except RuntimeError as err:
+            synced = str(err)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        require(synced is None, f"the sharded fast graphs' replays "
+                f"(interleave {il}) run under sync debug mode 'error': "
+                f"{synced}")
+        got = calls_per(sh.step_and_frame, 1)
+        require(got is not None and got[0]["GraphLaunch"] == 4
+                and got[0]["LaunchKernel"] == 0,
+                f"a sharded fast step_and_frame call (interleave {il}) "
+                f"launches 4 CUDA graphs and no kernel (torch.profiler): "
+                f"{got and got[0]}")
+        sharded_plain[il] = {
+            "counts": counts, "per_call": got[0],
+            "entry_replay_ms": [replay_ms(g.graph, 1, 2)
+                                for g in graphs[("bands", 1)]],
+            "host_ms": from_idle(sh.step_and_frame, 2),
+            "capture_s": [round(g.seconds, 3) for g in graphs[("bands", 1)]],
+            "pools_mb": {str(key): pool_mb(gs) for key, gs in graphs.items()}}
+        print(f"Engine(path=fast, sharded=[cuda:0] * 4, interleave {il}) "
+              f"1280x720: each entry's step_and_frame graph by replay, host "
+              f"ms per call (2 from an idle device), capture s, API calls "
+              f"per call, pools (allocated, reserved) MB: "
+              f"{sharded_plain[il]} [{card}]", flush=True)
+        del sh, graphs
+        torch.cuda.empty_cache()
+    path_ms["sharded_fast"] = sharded_plain
+    fast_band_counts = sharded_plain[1]["counts"]
 
     # sky_cache=False: blend + pack per frame against the static stack,
     # eagerly and by its frame() graph
@@ -1844,7 +2047,7 @@ def main() -> int:
           f"step_and_frame by replay, host ms per call (8 from an idle "
           f"device, median of 5), API calls per call; each pool "
           f"(allocated, reserved) MB: {one_shot} [{card}]", flush=True)
-    del eng_one_shot, one_shot_pv, eng_fast_sh, chunked
+    del eng_one_shot, one_shot_pv, chunked
 
     # the CLI on these paths, and the window where pygame is absent
     with tempfile.TemporaryDirectory() as tmp:
@@ -2743,7 +2946,10 @@ def main() -> int:
          "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
          "launches": launches["fxaa"], "max_abs_err": b_err,
          "ms": ms_b, "plain_ms": ms_b_plain, "bound_ms": bound_b[0],
-         "bound_by": bound_b[1], "library_ms": None},
+         "bound_by": bound_b[1], "library_ms": None,
+         "launches_by_path": {"auto": launches["fxaa"],
+                              "fast": plain_counts["fast"]["fxaa"],
+                              "oracle": plain_counts["oracle"]["fxaa"]}},
         {"name": "fxaa_k8", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/fxaa.cu",
          "replaces": "raytracing_cuda_tpu/render/fxaa.py:265",
@@ -2763,7 +2969,9 @@ def main() -> int:
          "launches": band_counts["fxaa_band"], "max_abs_err": band_err,
          "ms": ms_band, "plain_ms": ms_band_plain,
          "bound_ms": bound_band[0], "bound_by": bound_band[1],
-         "library_ms": None},
+         "library_ms": None,
+         "launches_by_path": {"auto_sharded": band_counts["fxaa_band"],
+                              "fast_sharded": fast_band_counts["fxaa_band"]}},
         {"name": "raytrace_megakernel_arms", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace_arms.cu",
          "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",

@@ -113,7 +113,7 @@ def main(argv=None, report=None) -> int:
     # them, as the engine reads no other path
     eng = Engine(RenderConfig(width=w, height=h, sky_source="procedural",
                               procedural_sky_shape=(8, 8)), dev)
-    eng.sky_pack = eng._sky_packs[eng.device] = pack_sky_all(
+    eng.sky_pack = eng._skies[eng.device] = pack_sky_all(
         torch.from_numpy(texels).to(dev))
     eng.sky_h, eng.sky_w = sky_h, sky_w
     del texels

@@ -11,9 +11,9 @@ megakernel, the sky lookup + quantize, and FXAA selected by the state's
 toggle. The one host-to-device copy per frame is the (16,) action vector
 (K of them for a batch), from pinned memory on a card.
 
-On a card every entry point of the megakernel path (path "auto") runs as
-the JAX Engine's jitted programs do, one device program per call: a CUDA
-graph of the same device code. `step_and_frame`, `step_and_frame_batch`
+On a card every entry point runs as the JAX Engine's jitted programs do,
+whatever config.path is, one device program per call: a CUDA graph of the
+same device code. `step_and_frame`, `step_and_frame_batch`
 (one graph per K) and `step_and_frame_preview` are the step + render
 (the JAX `_step_render`, `_step_render_batch`, `_step_render_preview`);
 `frame()` renders the current state without stepping (`_render_only`);
@@ -53,9 +53,14 @@ and the CLI's `record` drive it.
 
 config.path "fast" and "oracle" render with the plain PyTorch raytracers
 instead (render/fast.py, render/reference.py) from the sky blended per
-frame, eagerly, sharded or not: `fast` reads a value back per chunk
-(`bool(mask.any())`), which a capture forbids; their state steps
-(`step`, `fast_forward`) are graphs as on every path. config.sky_cache=False
+frame, through the same graphs, sharded or not (a sharded entry renders
+its rows with the fast renderer on both paths, parallel/mesh.py
+entry_bands_plain, as the JAX package's shard_map program does). In the
+graphs the `fast` renderer runs every bounce and shadow sweep masked,
+where its eager form reads a flag back to the host at each early exit
+(the JAX renderer decides them on the device with lax.cond); the pixels
+are the same, and `_frame_eager()` keeps the host-decided form. Their
+batch is K step_and_frame calls, K graph replays. config.sky_cache=False
 renders the single-device megakernel path through the one-shot
 `render_frame` (blend + pack per frame) inside the graphs; a batch is then
 K single frames in one graph, as the JAX package scans them
@@ -76,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 import warnings
 from typing import Callable, NamedTuple
 
@@ -87,8 +93,9 @@ from raytracing_cuda_tpu_torch.core.types import Camera, to_device
 from raytracing_cuda_tpu_torch.parallel import frames as pframes
 from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
                                                      band_rows, devices,
-                                                     entry_bands, make_mesh,
-                                                     place_bands,
+                                                     entry_bands,
+                                                     entry_bands_plain,
+                                                     make_mesh, place_bands,
                                                      render_bands,
                                                      render_bands_plain)
 from raytracing_cuda_tpu_torch.render.cuda_rt import (cull_groups, cull_table,
@@ -160,15 +167,16 @@ class _Graph(NamedTuple):
     """One captured device step of one mesh entry: the graph, its static
     action input (K, 16) (None for a render-only graph), its output
     (frames, the entry's rows, or None for a state step alone), the launch
-    counts one replay adds, and the device memory the capture kept on the
+    counts one replay adds, the device memory the capture kept on the
     entry's device, (allocated, reserved) bytes: the graph's own memory
-    pool."""
+    pool, and the host seconds the capture and instantiation took."""
 
     graph: object
     actions: torch.Tensor
     out: torch.Tensor
     counts: tuple
     memory: tuple
+    seconds: float
 
 
 class _Replicas:
@@ -265,16 +273,20 @@ class Engine:
         # the step's constant tables, copied to the device here: a CUDA
         # graph cannot capture a copy from pageable host memory
         sim.device_constants(self.device)
-        # the scene, cull table and static sky stack on each device that
-        # renders, copied to a device once, at its first use
+        # the fast renderer's early exits are decided on the host where no
+        # CUDA graph captures a call (the CPU); on a card every call runs
+        # them masked, the form its graphs capture (render/fast.py)
+        self._early_exit = self.device.type != "cuda"
+        # the scene, cull table and the sky the path reads (the static
+        # stack, or the uint8 panoramas) on each device that renders,
+        # copied to a device once, at its first use
         self._scenes = dict(getattr(src, "_scenes", {}))
         self._culls = dict(getattr(src, "_culls", {}))
-        self._sky_packs = dict(getattr(src, "_sky_packs", {}))
-        if static:
-            self._scenes[self.device] = self.scene
-            self._culls[self.device] = self.cull
-            self._sky_packs[self.device] = self.sky_pack
-            self._assets_for(self.mesh or [])
+        self._skies = dict(getattr(src, "_skies", {}))
+        self._scenes[self.device] = self.scene
+        self._culls[self.device] = self.cull
+        self._skies[self.device] = self.sky_pack if static else self.sky_texels
+        self._assets_for(self.mesh or [])
         # the state: a snapshot handed out (None while only replicas hold
         # it); the replicas of the single-device graph path and of each
         # mesh, with their graphs
@@ -332,7 +344,7 @@ class Engine:
         return mesh
 
     def _assets_for(self, mesh) -> None:
-        """Put the scene, the cull table, the static sky stack and the
+        """Put the scene, the cull table, the sky the path reads and the
         step's constants on every device of mesh, once per device, before
         any capture."""
         for d in dict.fromkeys(mesh):
@@ -343,8 +355,8 @@ class Engine:
                 self._scenes[d] = to_device(self.scene, d)
             if d not in self._culls:
                 self._culls[d] = self.cull.to(d)
-            if d not in self._sky_packs:
-                self._sky_packs[d] = self.sky_pack.to(d)
+            if d not in self._skies:
+                self._skies[d] = self._skies[self.device].to(d)
             sim.device_constants(d)
 
     def _replicas_for(self, mesh) -> _Replicas:
@@ -436,23 +448,38 @@ class Engine:
         uint8 on the engine device."""
         c = self.config
         return render_bands(coefs, params, n_tri, n_sph, states,
-                            self._sky_packs, self.sky_h, self.sky_w,
+                            self._skies, self.sky_h, self.sky_w,
                             mesh=self.mesh, height=c.height, width=c.width,
                             interleave=c.shard_interleave,
                             cull=self.cull).to(self.device)
 
-    def _render(self, state) -> torch.Tensor:
+    def _bands_plain(self, state) -> torch.Tensor:
+        """The `fast` / `oracle` frame of `state` in row bands over the
+        engine's mesh, exchanging halo rows (render_bands_plain, early exits
+        decided on the host) → (H, W, 3) uint8 on the engine device."""
+        c = self.config
+        return render_bands_plain(
+            self.scene, state, self.sky_texels, mesh=self.mesh,
+            height=c.height, width=c.width, chunk=c.chunk, aspect=c.aspect,
+            aa=state.aa, interleave=c.shard_interleave).to(self.device)
+
+    def _render(self, state, early_exit: bool | None = None) -> torch.Tensor:
         """The frame of `state` on one device: from the static stack, or
         where the sky is blended per frame (the `fast` and `oracle` paths,
         and sky_cache=False) the one-shot render_frame with the Engine's
-        cull table (read by the megakernel path only)."""
+        cull table (read by the megakernel path only); early_exit as in
+        render_frame (the `fast` path's), None: the Engine's own form
+        (masked on a card)."""
         c = self.config
         if self.sky_pack is None:
             return render_frame(self.scene, state, self.sky_texels, c.height,
                                 c.width, chunk=c.chunk, aspect=c.aspect,
                                 path=self.path, tri_clusters=self.tri_clusters,
                                 sph_clusters=self.sph_clusters,
-                                t_subs=self.tri_subs, cull=self.cull)
+                                t_subs=self.tri_subs, cull=self.cull,
+                                early_exit=(self._early_exit
+                                            if early_exit is None
+                                            else early_exit))
         coef, params, n_tri, n_sph, _ = self._packs(state)
         base = _base(coef, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                      self.sky_w, state, c.height, c.width, self.cull)
@@ -460,66 +487,67 @@ class Engine:
 
     def frame(self) -> torch.Tensor:
         """Render the current state → (H, W, 3) uint8 on the engine device,
-        without stepping it (the JAX Engine's `_render_only`). On the
-        megakernel path a call on a card is one CUDA graph replay once warm
-        (one per mesh entry when sharded, each rendering its rows of its
-        replica of the state); the `fast` and `oracle` paths render
-        eagerly."""
-        if self.path != "auto":
-            return self._frame_eager()
+        without stepping it (the JAX Engine's `_render_only`). On every path
+        a call on a card is one CUDA graph replay once warm (one per mesh
+        entry when sharded, each rendering its rows of its replica of the
+        state)."""
         if self.mesh is not None:
             return self._run_sharded(None)[0]
         return self._run_single("render", None)
 
     def _frame_eager(self) -> torch.Tensor:
-        """The current state's frame, rendered eagerly: the `fast` and
-        `oracle` frame (in row bands when sharded), and on the megakernel
-        path the reference the frame graphs are held against (for a
-        sharded Engine the exchanging parallel/mesh.py render_bands)."""
+        """The current state's frame, rendered eagerly: the reference the
+        frame graphs are held against, with the `fast` renderer's early
+        exits decided on the host (for a sharded Engine the exchanging
+        parallel/mesh.py render_bands, or render_bands_plain on the `fast`
+        and `oracle` paths)."""
         if self.mesh is None:
-            return self._render(self.state)
+            return self._render(self.state, early_exit=True)
         if self.path != "auto":
-            c = self.config
-            return render_bands_plain(
-                self.scene, self.state, self.sky_texels, mesh=self.mesh,
-                height=c.height, width=c.width, chunk=c.chunk,
-                aspect=c.aspect, aa=self.state.aa,
-                interleave=c.shard_interleave).to(self.device)
+            return self._bands_plain(self.state)
         coef, params, n_tri, n_sph, _ = self._packs()
         return self._bands(coef[None], params[None], n_tri, n_sph,
                            [self.state])[0]
 
-    def _step_render(self, kind: str, state, avs):
+    def _step_render(self, kind: str, state, avs,
+                     early_exit: bool | None = None):
         """The eager device step of one call: from `state`, on packed
         actions avs (K, 16) on the engine device → (the new state, the
         output). kind "frame": one frame; "preview": one frame
         box-downsampled by config.preview; "batch": K frames, each kernel
-        launched once (from the static stack; with sky_cache=False K
-        one-shot frames); "render" (single device, avs None): the frame of
-        `state` itself, unstepped. On the single-device megakernel path
-        this is what the CUDA graph captures; on a sharded Engine it is
-        the exchanging reference the entries' graphs are held against (the
-        state stepped and packed on the engine device, then
-        parallel/mesh.py render_bands)."""
+        launched once (from the static stack; where the sky is blended per
+        frame K single frames); "render" (single device, avs None): the
+        frame of `state` itself, unstepped. On one device it is what the CUDA
+        graph captures; early_exit as in render_frame, None: the Engine's
+        own form (on a card every bounce and sweep masked, as captured;
+        True is the host-decided reference). On a sharded Engine it is the
+        exchanging reference the entries' graphs are held against (the
+        state stepped on the engine device, then packed and
+        parallel/mesh.py render_bands, or render_bands_plain on the `fast`
+        and `oracle` paths)."""
         c = self.config
         if self.mesh is not None:
-            coefs, params, n_tri, n_sph, _, states = batch_packs(
-                self.scene, state, avs, c.height, c.width, c.aspect,
-                self.tri_clusters, self.sph_clusters, self.tri_subs,
-                self.cull)
-            img = self._bands(coefs, params, n_tri, n_sph, states)
+            if self.path != "auto":
+                states = step_states(state, avs, self.device)
+                img = torch.stack([self._bands_plain(st) for st in states])
+            else:
+                coefs, params, n_tri, n_sph, _, states = batch_packs(
+                    self.scene, state, avs, c.height, c.width, c.aspect,
+                    self.tri_clusters, self.sph_clusters, self.tri_subs,
+                    self.cull)
+                img = self._bands(coefs, params, n_tri, n_sph, states)
             if kind != "batch":
                 img = img[0]
             if kind == "preview":
                 img = _box_downsample(img, c.preview)
             return states[-1], img
         if kind == "render":
-            return state, self._render(state)
+            return state, self._render(state, early_exit)
         if kind == "batch" and self.sky_pack is None:
             imgs = []
             for av in avs:
                 state = sim.animate_packed(state, av)
-                imgs.append(self._render(state))
+                imgs.append(self._render(state, early_exit))
             return state, torch.stack(imgs)
         if kind == "batch":
             coefs, params, n_tri, n_sph, _, states = batch_packs(
@@ -530,7 +558,7 @@ class Engine:
                 coefs, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                 self.sky_w, states, c.height, c.width, self.cull)
         state = sim.animate_packed(state, avs[0])
-        img = self._render(state)
+        img = self._render(state, early_exit)
         if kind == "preview":
             img = _box_downsample(img, c.preview)
         return state, img
@@ -544,16 +572,24 @@ class Engine:
 
     def _shard_bands(self, entry: int, states):
         """Mesh entry `entry`'s rows of the K frames of `states`, on its
-        device: the packs of the states and entry_bands → (the K-th state,
-        (K, interleave, sub, W, 3) uint8)."""
+        device: the packs of the states and entry_bands (on the `fast` and
+        `oracle` paths entry_bands_plain per state, its early exits masked
+        on a card) → (the K-th state, (K, interleave, sub, W, 3) uint8)."""
         c = self.config
         d = self.mesh[entry]
+        if self.path != "auto":
+            return states[-1], torch.cat([entry_bands_plain(
+                self._scenes[d], st, self._skies[d], entry=entry,
+                n=len(self.mesh), height=c.height, width=c.width,
+                chunk=c.chunk, aspect=c.aspect,
+                interleave=c.shard_interleave, early_exit=self._early_exit)
+                for st in states])
         coefs, params, n_tri, n_sph, cull = stack_packs(
             self._scenes[d], states, c.height, c.width, c.aspect,
             self.tri_clusters, self.sph_clusters, self.tri_subs,
             self._culls[d])
         return states[-1], entry_bands(
-            coefs, params, n_tri, n_sph, states, self._sky_packs[d],
+            coefs, params, n_tri, n_sph, states, self._skies[d],
             self.sky_h, self.sky_w, entry=entry, n=len(self.mesh),
             height=c.height, width=c.width, interleave=c.shard_interleave,
             cull=cull)
@@ -588,6 +624,7 @@ class Engine:
             mem = (torch.cuda.memory_allocated(device),
                    torch.cuda.memory_reserved(device))
             graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
             try:
                 with torch.cuda.graph(graph):
                     new, out = step(entry, live, actions)
@@ -597,10 +634,12 @@ class Engine:
                 after = [getattr(fn, attr) for fn, attr in counters]
                 for (fn, attr), n in zip(counters, before):
                     setattr(fn, attr, n)
+            seconds = time.perf_counter() - t0
             mem = (torch.cuda.memory_allocated(device) - mem[0],
                    torch.cuda.memory_reserved(device) - mem[1])
         return _Graph(graph, actions, out,
-                      tuple(a - b for a, b in zip(after, before)), mem)
+                      tuple(a - b for a, b in zip(after, before)), mem,
+                      seconds)
 
     def _call(self, reps: _Replicas, key, vecs, step):
         """One call of `step` on every entry of `reps`: entry e steps its
@@ -648,22 +687,24 @@ class Engine:
                 r.current = r is reps
         return outs, replay
 
-    def _run_single(self, kind: str, vecs):
-        """One call of the device step on the single-device megakernel
-        path, from the current state on packed actions vecs (K, 16) (None:
-        kind "render", the current state's frame, unstepped) → the output,
-        which no later call overwrites."""
+    def _run_single(self, kind: str, vecs, out=None):
+        """One call of the device step on one device, from the current
+        state on packed actions vecs (K, 16) (None: kind "render", the
+        current state's frame, unstepped) → the output, which no later call
+        overwrites (copied into `out` where given)."""
         outs, replay = self._call(
             self._single, (kind, 1 if vecs is None else len(vecs)), vecs,
             lambda _, state, avs: self._step_render(kind, state, avs))
+        if out is not None:
+            return out.copy_(outs[0])
         return outs[0].clone() if replay else outs[0]
 
-    def _run_sharded(self, vecs) -> torch.Tensor:
+    def _run_sharded(self, vecs, frames=None) -> torch.Tensor:
         """One call of the sharded device step on packed actions vecs
         (K, 16): every mesh entry steps its replica and renders its rows,
-        then the rows are copied into the K frames on the engine device →
-        (K, H, W, 3) uint8. vecs None: each entry renders its rows of its
-        replica's frame, unstepped (K = 1)."""
+        then the rows are copied into the K frames on the engine device
+        (`frames`, where given) → (K, H, W, 3) uint8. vecs None: each entry
+        renders its rows of its replica's frame, unstepped (K = 1)."""
         c = self.config
         if vecs is None:
             key, step = ("render", 1), (
@@ -671,29 +712,35 @@ class Engine:
         else:
             key, step = ("bands", len(vecs)), self._shard_step
         outs, _ = self._call(self._replicas_for(self.mesh), key, vecs, step)
-        frames = torch.empty((key[1], c.height, c.width, 3),
-                             dtype=torch.uint8, device=self.device)
+        if frames is None:
+            frames = torch.empty((key[1], c.height, c.width, 3),
+                                 dtype=torch.uint8, device=self.device)
         for e, out in enumerate(outs):
             place_bands(frames, out, e, len(self.mesh))
         return frames
 
     def step_and_frame(self, action: Action | None = None,
                        dt: float = 1 / 60) -> torch.Tensor:
-        """Step the state machine, then render the new state."""
-        if self.path != "auto":
-            self.step(action, dt)
-            return self.frame()
-        vec = (action or Action.idle()).pack(dt)[None]
+        """Step the state machine, then render the new state (the JAX
+        Engine's `_step_render`: one CUDA graph replay per call on a card
+        once warm, one per mesh entry when sharded)."""
+        return self._step_frame((action or Action.idle()).pack(dt)[None])
+
+    def _step_frame(self, vec, out=None) -> torch.Tensor:
+        """One step_and_frame call on the packed (1, 16) action vec → the
+        frame (written into `out`, (H, W, 3), where given)."""
         if self.mesh is None:
-            return self._run_single("frame", vec)
-        return self._run_sharded(vec)[0]
+            return self._run_single("frame", vec, out)
+        return self._run_sharded(vec, None if out is None else out[None])[0]
 
     def step_and_frame_preview(self, action: Action | None = None,
                                dt: float = 1 / 60) -> torch.Tensor:
         """Step, render at full size, box-downsample on the device →
         (H/p, W/p, 3) uint8 on the engine device (p = config.preview): a
-        full-size render with a small readback."""
-        if self.path == "auto" and self.mesh is None:
+        full-size render with a small readback. On one device a graph of
+        its own (the JAX Engine's `_step_render_preview`); sharded, the
+        step_and_frame graphs, then the downsample."""
+        if self.mesh is None:
             return self._run_single(
                 "preview", (action or Action.idle()).pack(dt)[None])
         return _box_downsample(self.step_and_frame(action, dt),
@@ -701,10 +748,12 @@ class Engine:
 
     def step_and_frame_batch(self, actions, dts=None) -> torch.Tensor:
         """Step and render K frames → (K, H, W, 3) uint8 on the engine
-        device, each kernel launched once for the batch (frame by frame
-        where the sky is blended per frame: the `fast` and `oracle` paths,
-        and sky_cache=False, whose K frames are one call). actions: a list
-        of Actions (dts per frame, default 1/60 each) or packed (K, 16)
+        device: on the megakernel path one call, each kernel launched once
+        for the batch (with sky_cache=False K one-shot frames in one call);
+        on the `fast` and `oracle` paths K step_and_frame calls, K replays
+        of its graph on a card (a K-frame graph of these renderers costs
+        more to capture than K replays, PERF.md). actions: a list of
+        Actions (dts per frame, default 1/60 each) or packed (K, 16)
         vectors carrying their own dt. Frame k equals the k-th of K
         step_and_frame calls."""
         if isinstance(actions, (list, tuple)) and dts is None:
@@ -713,11 +762,12 @@ class Engine:
         if len(vecs) < 1:
             raise ValueError("a batch needs at least one frame")
         if self.path != "auto":
-            imgs = []
+            c = self.config
+            imgs = torch.empty((len(vecs), c.height, c.width, 3),
+                               dtype=torch.uint8, device=self.device)
             for j in range(len(vecs)):
-                self._step_one(vecs[j:j + 1])
-                imgs.append(self.frame())
-            return torch.stack(imgs)
+                self._step_frame(vecs[j:j + 1], imgs[j])
+            return imgs
         if self.mesh is None:
             return self._run_single("batch", vecs)
         return self._run_sharded(vecs)
@@ -775,7 +825,7 @@ class Engine:
         def step(entry, state, avs):
             d = flat[entry]
             return pframes.script_entry(
-                self._scenes[d], state, avs, self._sky_packs[d], self.sky_h,
+                self._scenes[d], state, avs, self._skies[d], self.sky_h,
                 self.sky_w, group=entry // n_rows, row=entry % n_rows,
                 n_frames=n_frames, n_rows=n_rows, height=c.height,
                 width=c.width, aspect=c.aspect, interleave=interleave,

@@ -30,10 +30,14 @@ Two forms of the same frame, equal bit for bit to the single-device frame
   chunk, judging borders by global row.
 
 A band of a `fast` or `oracle` frame runs no megakernel: its chunk is
-`render_base_image_fast` at the chunk's row offset, from the sky blended
-once per frame, and then the same halo exchange and kernel B. The JAX
-package renders the fast renderer in bands for `path="oracle"` too
-(mesh.py:115-118), and so does this port.
+`render_base_image_fast` at the chunk's row offset. The JAX package
+renders the fast renderer in bands for `path="oracle"` too
+(mesh.py:115-118), and so does this port, in the same two forms:
+`entry_bands_plain` (an entry derives the frame, blends the sky on its
+device and renders its chunks with their halo rows recomputed, the early
+exits masked where a CUDA graph captures it; the Engine's sharded path)
+and the exchanging `render_bands_plain` (the sky blended once per frame,
+then the halo exchange and kernel B).
 
 The JAX package's grouped sky resolve, and with it the band alignment rule
 of `_resolve_grouped`, is left behind: the port's sky lookup is per pixel.
@@ -207,16 +211,29 @@ def entry_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
     neighbouring chunks' edge rows bit for bit: recomputing them replaces
     the exchange of filter_bands. One chunk (n * interleave == 1) is the
     whole frame, filtered by kernel B's K-frame form."""
+    def render(lo: int, hi: int):
+        return bases_from_packs(coefs, params, n_tri_rows, n_sph_rows,
+                                sky_pack, sky_h, sky_w, states, hi - lo,
+                                width, row0=lo, total_h=height, cull=cull)
+
+    return _entry_rows(render, torch.stack([st.aa for st in states]),
+                       entry, n, height, interleave)
+
+
+def _entry_rows(render, aa, entry: int, n: int, height: int,
+                interleave: int) -> torch.Tensor:
+    """The rows of mesh entry `entry` of n, filtered, with no exchange:
+    render(lo, hi) → the K frames' rows lo..hi - 1 before FXAA, (K, hi - lo,
+    W, 3) uint8, called once per chunk of the entry for the chunk's rows and
+    its halo rows; aa (K,) bool → (K, interleave, sub, W, 3) uint8, chunk
+    entry + j * n at [:, j] (entry_bands)."""
     sub = band_rows(height, n, interleave)
     chunks = n * interleave
-    aa = torch.stack([st.aa for st in states])[:, None, None, None]
+    aa = aa[:, None, None, None]
     outs = []
     for j in range(interleave):
         c = j * n + entry
-        lo, hi = max(c * sub - 1, 0), min((c + 1) * sub + 1, height)
-        base = bases_from_packs(coefs, params, n_tri_rows, n_sph_rows,
-                                sky_pack, sky_h, sky_w, states, hi - lo,
-                                width, row0=lo, total_h=height, cull=cull)
+        base = render(max(c * sub - 1, 0), min((c + 1) * sub + 1, height))
         if chunks == 1:
             out = fxaa_batch(base)
         else:
@@ -227,6 +244,40 @@ def entry_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
             base = ext[:, 1:-1]
         outs.append(torch.where(aa, out, base))
     return torch.stack(outs, dim=1) if interleave > 1 else outs[0][:, None]
+
+
+def entry_bands_plain(scene: Scene, state: FrameState,
+                      sky_texels: torch.Tensor, *, entry: int, n: int,
+                      height: int, width: int, chunk: int = 32768,
+                      aspect: float | None = None, interleave: int = 1,
+                      early_exit: bool = True) -> torch.Tensor:
+    """Mesh entry `entry` of n on the `fast` and `oracle` paths: its rows of
+    the frame of `state`, filtered, with no exchange → (1, interleave, sub,
+    width, 3) uint8 on the device of `sky_texels` (the four panoramas,
+    (4, H, W, 3) uint8), where `scene` and `state` lie too.
+
+    The entry derives the frame and blends the sky on its own device, then
+    renders each of its chunks' rows and their halo rows with
+    render_base_image_fast at their global rows (the fast renderer on both
+    paths, as render_bands_plain and mesh.py:115-118 of the JAX package),
+    and filters them as entry_bands does. early_exit as in
+    render_base_image_fast: False reads nothing back, so a CUDA graph can
+    capture the entry."""
+    if aspect is None:
+        aspect = width / height
+    scene_f, lights, ambient = derive_frame(scene, state)
+    rays = camera_rays(state.cam, aspect)
+    blended = blend_sky(sky_texels, state.sky_vars)
+    day_frac = true_div(state.day_time, 24.0)
+
+    def render(lo: int, hi: int):
+        return render_base_image_fast(
+            scene_f, lights, ambient, blended, day_frac, rays, hi - lo,
+            width, row0=lo, total_height=height, chunk=chunk,
+            early_exit=early_exit)[None]
+
+    return _entry_rows(render, state.aa.reshape(1), entry, n, height,
+                       interleave)
 
 
 def place_bands(frames: torch.Tensor, bands: torch.Tensor, entry: int,

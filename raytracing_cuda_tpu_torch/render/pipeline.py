@@ -89,7 +89,8 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
                  aspect: float | None = None,
                  fxaa_static: bool | None = None, path: str = "fast",
                  tri_clusters=None, sph_clusters=None,
-                 t_subs=None, cull=None) -> torch.Tensor:
+                 t_subs=None, cull=None,
+                 early_exit: bool = True) -> torch.Tensor:
     """Render one frame → (height, width, 3) uint8 on the device of
     `sky_texels`, the four panoramas (4, H, W, 3) uint8.
 
@@ -101,8 +102,11 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
     (the CUDA kernel on a card, its plain version on the CPU) with the sky
     looked up in the packed per-frame blend; only "auto" reads the cluster
     arguments and `cull`, the scene's cull table (frame_packs; built for
-    the frame where None, the same table bit for bit). FXAA is kernel B
-    on a card and its plain version on the CPU on every path.
+    the frame where None, the same table bit for bit). early_exit=False
+    runs the "fast" renderer with every bounce and sweep masked and no
+    value read back (render.fast; a CUDA graph can capture it); it changes
+    no pixel. FXAA is kernel B on a card and its plain version on the CPU
+    on every path.
     """
     if aspect is None:
         aspect = width / height
@@ -126,7 +130,8 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
         base = PLAIN_RENDERERS[path](
             to_device(scene_f, dev), to_device(lights, dev), ambient.to(dev),
             blended, day_frac, to_device(camera_rays(state.cam, aspect), dev),
-            height, width, chunk=chunk)
+            height, width, chunk=chunk,
+            **({"early_exit": early_exit} if path == "fast" else {}))
     else:
         raise ValueError(f"path must be 'auto', 'fast' or 'oracle', got "
                          f"{path!r}")

@@ -168,8 +168,11 @@ def chunked_rays(cam: CameraRays, height: int, width: int, row0: int,
     chunk = min(chunk, n_px)
     pad = -n_px % chunk
     if pad:
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=f32, device=flat.device)
-        flat = torch.cat([flat, up.expand(pad, 3)])
+        # filled on the device: a tensor made from host numbers would be a
+        # copy from pageable memory, which a CUDA graph capture refuses
+        up = torch.zeros((pad, 3), dtype=f32, device=flat.device)
+        up[:, 1].fill_(1.0)
+        flat = torch.cat([flat, up])
     return flat.reshape(-1, chunk, 3), n_px
 
 

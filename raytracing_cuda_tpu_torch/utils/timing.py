@@ -139,3 +139,30 @@ def graph_device_ms(fn, reps: int) -> float:
     launches so short that events around a host loop time the host's launch
     rate instead."""
     return replay_ms(capture_graph(fn, reps), reps)
+
+
+def graph_nodes(fn) -> int:
+    """The node count of a CUDA graph of one fn() call on the current CUDA
+    device (cudaGraphGetNodes on the graph a capture kept; the graph and
+    its memory are released before this returns). fn must already have run
+    once eagerly, as any capture needs."""
+    import ctypes
+
+    from raytracing_cuda_tpu_torch.parallel.mesh import _cudart
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    lib = _cudart()
+    lib.cudaGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_size_t)]
+    lib.cudaGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = lib.cudaGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    graph.reset()
+    torch.cuda.empty_cache()
+    if err:
+        raise RuntimeError(f"cudaGraphGetNodes failed: "
+                           f"{lib.cudaGetErrorString(err).decode()}")
+    return n.value

@@ -254,6 +254,7 @@ def _imports(path: Path):
 
 SCRIPTS = ["chip_smoke.py", "bench_torch.py", "__torch_entry__.py",
            "experiments/megakernel_ablation_torch.py",
+           "experiments/plain_graphs_torch.py",
            "experiments/readback_fps_torch.py",
            "experiments/soak_torch.py",
            "experiments/tail_probe_torch.py",

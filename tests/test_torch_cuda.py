@@ -913,3 +913,116 @@ def test_sky_cache_off_graphs_equal_eager_step(dev, kind, k, preview):
         assert torch.equal(got, want), i
         assert states_equal(eng.state, st), i
     assert (kind, k) in eng._graphs
+
+
+# --- the `fast` and `oracle` paths as CUDA graphs ---
+
+
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+def test_plain_frame_graphs_equal_eager_frame(dev, path):
+    """frame() on the `fast` and `oracle` paths at the four golden states,
+    the worst pose and the classic scene: the first call eager, then one
+    CUDA graph replay per call (kernel B once, kernel A never), each equal
+    bit for bit to _frame_eager(), whose `fast` early exits are decided on
+    the host."""
+    eng = small_engine("cuda", path=path, chunk=4096)
+    classic = small_engine("cuda", path=path, chunk=4096, scene="classic")
+    poses = [(eng, make_state(**POSES[name]), name)
+             for name in sorted(CASES) + ["worst_pose"]]
+    for e, st, name in poses + [(classic, classic.state, "classic")]:
+        e.set_state(st)
+        for _ in range(2):
+            before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches)
+            img = e.frame()
+            torch.cuda.synchronize()
+            if ("render", 1) in e._graphs:
+                assert (cuda_rt.raytrace_planes.launches - before[0],
+                        fxaa.fxaa.launches - before[1]) == (0, 1), name
+            assert torch.equal(img, e._frame_eager()), name
+    assert set(eng._graphs) == set(classic._graphs) == {("render", 1)}
+
+
+@pytest.mark.parametrize("kind,k,preview", [("frame", 1, 1),
+                                            ("preview", 1, 2),
+                                            ("batch", 3, 1)])
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+def test_plain_step_graphs_equal_eager_step(dev, path, kind, k, preview):
+    """step_and_frame, its preview and a batch of 3 (three replays of the
+    step_and_frame graph) on the plain paths against Engine._step_render
+    from the same state, with the host's early exits, frames and states
+    bit for bit, over 4 calls."""
+    eng = small_engine("cuda", path=path, preview=preview, chunk=4096)
+    acts = random_actions(4 * k, seed=71)
+    call = {"frame": lambda a: eng.step_and_frame(a[0], 0.05),
+            "preview": lambda a: eng.step_and_frame_preview(a[0], 0.05),
+            "batch": lambda a: eng.step_and_frame_batch(a, [0.05] * k)}[kind]
+    eng.set_state(make_state(17.6, yaw=315.0))
+    st = tsim.clone_state(eng.state)
+    kept = []
+    for i in range(0, 4 * k, k):
+        a = acts[i:i + k]
+        got = call(a)
+        st, want = eng._step_render(
+            kind, st, eng._upload(pack_actions(a, [0.05] * k)),
+            early_exit=True)
+        assert torch.equal(got, want), i
+        assert states_equal(eng.state, st), i
+        kept.append((got, want.clone()))
+    assert set(eng._graphs) == {("frame" if kind == "batch" else kind, 1)}
+    assert all(torch.equal(g, w) for g, w in kept)
+
+
+@pytest.mark.parametrize("interleave", [1, 2])
+def test_sharded_fast_graphs_equal_exchange(dev, interleave):
+    """A sharded `fast` Engine on ["cuda:0"] * 4: frame() and
+    step_and_frame by one CUDA graph per entry (entry_bands_plain, early
+    exits masked) against the exchanging render_bands_plain reference and
+    the single-device `fast` Engine, bit for bit; kernel B's band form
+    once per chunk of a call."""
+    eng = small_engine("cuda", sharded=["cuda:0"] * 4, path="fast",
+                       chunk=4096, shard_interleave=interleave)
+    one = small_engine("cuda", path="fast", chunk=4096)
+    acts = toggling_actions(8, seed=72)
+    for i, name in enumerate(sorted(CASES)):
+        for e in (eng, one):
+            e.set_state(make_state(**CASES[name]))
+        img = eng.frame()
+        assert torch.equal(img, eng._frame_eager()), name
+        assert torch.equal(img, one.frame()), name
+        for a in acts[2 * i:2 * i + 2]:
+            st = eng.state
+            before = fxaa.fxaa_ext.launches
+            got = eng.step_and_frame(a, 0.05)
+            torch.cuda.synchronize()
+            assert fxaa.fxaa_ext.launches == before + 4 * interleave
+            new, want = eng._step_render(
+                "frame", st, eng._upload(pack_actions([a], [0.05])))
+            assert torch.equal(got, want) and states_equal(eng.state, new)
+            assert torch.equal(got, one.step_and_frame(a, 0.05)), name
+    graphs = eng._replicas[tuple(eng.mesh)].graphs
+    assert len(graphs["render", 1]) == len(graphs["bands", 1]) == 4
+
+
+@pytest.mark.parametrize("path", ["fast", "oracle"])
+def test_plain_graph_replays_never_sync(dev, path):
+    """The replays of frame(), step_and_frame, its preview and a batch on
+    the plain paths, and a sharded `fast` Engine's, run under
+    torch.cuda.set_sync_debug_mode("error"): no early exit read back."""
+    eng = small_engine("cuda", path=path, preview=2, chunk=4096)
+    sharded = small_engine("cuda", sharded=["cuda:0"] * 4, path=path,
+                           chunk=4096)
+    calls = [eng.frame, eng.step_and_frame, eng.step_and_frame_preview,
+             lambda: eng.step_and_frame_batch(random_actions(2, seed=73)),
+             sharded.frame, sharded.step_and_frame]
+    for call in calls:
+        for _ in range(2):               # eager, then the capture
+            call()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
