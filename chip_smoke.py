@@ -508,6 +508,20 @@ def halo_bands(img: torch.Tensor, n: int):
 PROFILE_TRIES = 4
 
 
+def warm(fn):
+    """One call of fn(), then one under a throwaway torch.profiler session,
+    each drained: an Engine frame call's first call while a profiler
+    records captures the marked variant of its graph (app/loop.py), which
+    must not fall inside a counted trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+
+
 def profiled(fn, reps: int, knames):
     """device_activity of a torch.profiler trace of reps calls of fn(),
     traced again (up to PROFILE_TRIES traces) while the trace holds no
@@ -516,8 +530,7 @@ def profiled(fn, reps: int, knames):
     from raytracing_cuda_tpu_torch.utils import profiling
 
     for attempt in range(1, PROFILE_TRIES + 1):
-        fn()
-        torch.cuda.synchronize()
+        warm(fn)
         with tempfile.TemporaryDirectory() as tmp:
             with profiling.trace(tmp):
                 for _ in range(reps):
@@ -543,8 +556,7 @@ def profiled_calls(fn, reps: int, need: str = "GraphLaunch"):
     from raytracing_cuda_tpu_torch.utils import profiling
 
     for attempt in range(1, PROFILE_TRIES + 1):
-        fn()
-        torch.cuda.synchronize()
+        warm(fn)
         with tempfile.TemporaryDirectory() as tmp:
             with profiling.trace(tmp):
                 for _ in range(reps):

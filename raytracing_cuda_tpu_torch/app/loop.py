@@ -32,6 +32,15 @@ wrapper's launch counter the launches its capture recorded.
 `_frame_eager()` keeps the eager render the frame graphs are held
 against.
 
+While a torch.profiler session records (utils/profiling.py), each call is
+a host span `engine.call` holding its upload, replay or eager run and
+capture, all carrying the call's number; and a single-device frame
+call on the static sky stack (`step_and_frame`, `step_and_frame_preview`,
+`frame()`) replays a second graph of the same step with four stage marks
+in it (begin, step, packs, sky: empty kernels whose times split the
+frame's device time in the trace), captured at the first such call in a
+pool of its own. The graph replayed with the profiler off has no mark.
+
 A sharded Engine (its step calls and its `frame()`, which renders without
 stepping), and `render_script_dp`, run the JAX package's shard_map
 programs the same way, one graph per mesh entry per call: every entry
@@ -118,6 +127,7 @@ from raytracing_cuda_tpu_torch.scene.builders import (CLASSIC_CAMERA,
 from raytracing_cuda_tpu_torch.scene.textures import load_skies, pack_sky_all
 from raytracing_cuda_tpu_torch.sim import state as sim
 from raytracing_cuda_tpu_torch.sim.actions import Action
+from raytracing_cuda_tpu_torch.utils import profiling
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 from raytracing_cuda_tpu_torch.utils.timing import (FrameStats, FrameTimer,
                                                     device_sync)
@@ -183,14 +193,16 @@ class _Replicas:
     """One state replica per entry of a mesh, each on its entry's device:
     the buffers the entries' steps read and write (made at their first
     call), whether they hold the Engine's current state, the CUDA graphs
-    captured on them (by call key, one per entry) and the keys whose
-    first, eager call has run."""
+    captured on them (by call key, one per entry), their variants with the
+    stage marks (`traced`, replayed only while a profiler records) and the
+    keys whose first, eager call has run."""
 
     def __init__(self, mesh):
         self.mesh = list(mesh)
         self.live: list | None = None
         self.current = False
         self.graphs: dict = {}
+        self.traced: dict = {}
         self.warm: set = set()
 
 
@@ -294,6 +306,7 @@ class Engine:
         self._single = _Replicas([self.device])
         self._replicas: dict = {}
         self.state = state
+        self._calls = 0                 # the traced calls, for their spans
 
     @property
     def state(self) -> sim.FrameState:
@@ -481,6 +494,7 @@ class Engine:
                                             if early_exit is None
                                             else early_exit))
         coef, params, n_tri, n_sph, _ = self._packs(state)
+        profiling.mark("packs")
         base = _base(coef, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                      self.sky_w, state, c.height, c.width, self.cull)
         return apply_fxaa(base, state.aa)
@@ -542,6 +556,7 @@ class Engine:
                 img = _box_downsample(img, c.preview)
             return states[-1], img
         if kind == "render":
+            profiling.mark("begin")
             return state, self._render(state, early_exit)
         if kind == "batch" and self.sky_pack is None:
             imgs = []
@@ -557,7 +572,9 @@ class Engine:
             return states[-1], frames_from_packs(
                 coefs, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                 self.sky_w, states, c.height, c.width, self.cull)
+        profiling.mark("begin")
         state = sim.animate_packed(state, avs[0])
+        profiling.mark("step")
         img = self._render(state, early_exit)
         if kind == "preview":
             img = _box_downsample(img, c.preview)
@@ -641,7 +658,8 @@ class Engine:
                       tuple(a - b for a, b in zip(after, before)), mem,
                       seconds)
 
-    def _call(self, reps: _Replicas, key, vecs, step):
+    def _call(self, reps: _Replicas, key, vecs, step, marks: bool = False,
+              span=None):
         """One call of `step` on every entry of `reps`: entry e steps its
         replica, step(e, replica, actions) → (new state, output), on the
         packed actions vecs (K, 16) uploaded to its device → (the entries'
@@ -651,25 +669,51 @@ class Engine:
         snapshot stays. On a card the first call of each key runs eagerly,
         the second captures one CUDA graph per entry and every call from
         then on replays them; a graph's output is overwritten by its next
-        replay. Elsewhere every call is eager."""
+        replay. Elsewhere every call is eager.
+
+        While a torch.profiler session records, the call numbers itself
+        and runs again inside the host span `engine.call`, given `span`,
+        its span function (utils/profiling.py): its upload, replay or
+        eager run and capture are spans then, all carrying its number, and
+        where `marks` (a step that places the stage marks) a replay is of
+        the graph's marked variant, captured at the first such call in a
+        pool of its own. Otherwise the call costs a flag check more than
+        an untraced Engine's and replays the plain graph."""
+        if span is None and profiling.recording():
+            self._calls += 1
+            span = profiling.spans(self._calls)
+            with span("engine.call"):
+                return self._call(reps, key, vecs, step, marks, span)
         self._load(reps)
         replay = self.device.type == "cuda" and key in reps.warm
         reps.warm.add(key)
         vecs = None if vecs is None else self._host(vecs)
+        part = span or profiling.off
         outs = []
         if replay:
-            graphs = reps.graphs.get(key)
+            table = reps.traced if span is not None and marks else reps.graphs
+            graphs = table.get(key)
             if graphs is None:
-                graphs = reps.graphs[key] = [
-                    self._capture(step, e, live, d,
-                                  None if vecs is None else len(vecs))
-                    for e, (live, d) in enumerate(zip(reps.live,
-                                                      reps.mesh))]
+                with part("engine.capture"), (
+                        profiling.marking() if table is reps.traced
+                        else profiling.NOOP):
+                    graphs = table[key] = [
+                        self._capture(step, e, live, d,
+                                      None if vecs is None else len(vecs))
+                        for e, (live, d) in enumerate(zip(reps.live,
+                                                          reps.mesh))]
             for g, d in zip(graphs, reps.mesh):
                 with torch.cuda.device(d):
-                    if vecs is not None:
-                        g.actions.copy_(vecs, non_blocking=True)
-                    g.graph.replay()
+                    if span is None:
+                        if vecs is not None:
+                            g.actions.copy_(vecs, non_blocking=True)
+                        g.graph.replay()
+                    else:
+                        if vecs is not None:
+                            with span("engine.upload"):
+                                g.actions.copy_(vecs, non_blocking=True)
+                        with span("engine.replay"):
+                            g.graph.replay()
                 for (fn, attr), n in zip(_launch_counters(), g.counts):
                     setattr(fn, attr, getattr(fn, attr) + n)
                 outs.append(g.out)
@@ -677,9 +721,13 @@ class Engine:
             for e, (live, d) in enumerate(zip(reps.live, reps.mesh)):
                 with (torch.cuda.device(d) if d.type == "cuda"
                       else contextlib.nullcontext()):
-                    new, out = step(e, live, None if vecs is None
-                                    else vecs.to(d, non_blocking=True))
-                    _write_state(live, new)
+                    avs = None
+                    if vecs is not None:
+                        with part("engine.upload"):
+                            avs = vecs.to(d, non_blocking=True)
+                    with part("engine.eager"):
+                        new, out = step(e, live, avs)
+                        _write_state(live, new)
                 outs.append(out)
         if vecs is not None:
             self._state = None              # the replicas hold it
@@ -691,10 +739,12 @@ class Engine:
         """One call of the device step on one device, from the current
         state on packed actions vecs (K, 16) (None: kind "render", the
         current state's frame, unstepped) → the output, which no later call
-        overwrites (copied into `out` where given)."""
+        overwrites (copied into `out` where given). The single frame kinds
+        on the static sky stack place the stage marks."""
         outs, replay = self._call(
             self._single, (kind, 1 if vecs is None else len(vecs)), vecs,
-            lambda _, state, avs: self._step_render(kind, state, avs))
+            lambda _, state, avs: self._step_render(kind, state, avs),
+            marks=kind != "batch" and self.sky_pack is not None)
         if out is not None:
             return out.copy_(outs[0])
         return outs[0].clone() if replay else outs[0]

@@ -40,6 +40,7 @@ from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.sim.actions import Action
 from raytracing_cuda_tpu_torch.utils.checkpoint import load_state, save_state
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
+from raytracing_cuda_tpu_torch.utils import profiling
 from raytracing_cuda_tpu_torch.utils.images import save_png
 
 CHECKPOINT = "raytracer_state.json"
@@ -85,6 +86,10 @@ class Readback:
     it holds frame i - 1 until the submit after next, which copies frame
     i + 1 into it, so the caller is done with it (blitted or copied) before
     then. A frame that is already on the host is handed back as it is.
+
+    While a torch.profiler session records, the copy's enqueue and the
+    wait for a copy are host spans of the trace (`readback.copy`,
+    `readback.wait`; utils/profiling.py).
     """
 
     def __init__(self):
@@ -107,25 +112,28 @@ class Readback:
     def submit(self, frame: torch.Tensor):
         """Start `frame`'s readback; → the frame submitted before it, on
         the host (None for the first)."""
-        previous, self._pending = self._pending, (
-            (frame, None) if frame.device.type == "cpu"
-            else self._start_copy(frame))
-        return self._wait(previous)
+        span = profiling.span_function()
+        with span("readback.copy"):
+            pending = ((frame, None) if frame.device.type == "cpu"
+                       else self._start_copy(frame))
+        previous, self._pending = self._pending, pending
+        return self._wait(previous, span)
 
     def flush(self):
         """→ the pending frame on the host (None when there is none), which
         is then pending no more: the last frame of a loop, or one dropped
         at a resize."""
         pending, self._pending = self._pending, None
-        return self._wait(pending)
+        return self._wait(pending, profiling.span_function())
 
     @staticmethod
-    def _wait(pending):
+    def _wait(pending, span):
         if pending is None:
             return None
         host, copied = pending
-        if copied is not None:
-            copied.synchronize()
+        with span("readback.wait"):
+            if copied is not None:
+                copied.synchronize()
         return host
 
 

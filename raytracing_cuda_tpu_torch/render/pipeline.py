@@ -43,6 +43,7 @@ from raytracing_cuda_tpu_torch.scene.textures import (
 from raytracing_cuda_tpu_torch.sim.state import (FrameState, animate_packed,
                                                  camera_rays, derive_frame,
                                                  state_to)
+from raytracing_cuda_tpu_torch.utils import profiling
 
 
 PLAIN_RENDERERS = {"fast": render_base_image_fast,
@@ -154,7 +155,8 @@ def _base(coef, params, n_tri_rows: int, n_sph_rows: int, sky_pack,
     (height, width, 3) uint8 on the device of `coef`. cull: frame_packs'
     cull table on that device (read by the CUDA kernel only). The state's
     clock and sky weights are read on that device (day_frac = day_time /
-    24 as a true division)."""
+    24 as a true division). The `sky` stage mark follows the quantize
+    (utils/profiling.py `mark`: launched only in a marked capture)."""
     r, g, b, mw, mdx, mdy, mdz = raytrace_planes(coef, params, height, width,
                                                  n_tri_rows, n_sph_rows,
                                                  cull=cull)
@@ -162,7 +164,9 @@ def _base(coef, params, n_tri_rows: int, n_sph_rows: int, sky_pack,
     day_time = state.day_time.to(coef.device)
     sky = sample_sky_packed_pair(sky_pack, sky_h, sky_w, mdir,
                                  true_div(day_time, 24.0), state.sky_vars)
-    return quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    base = quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    profiling.mark("sky")
+    return base
 
 
 def render_frame_static_sky(scene: Scene, state: FrameState, sky_pack,

@@ -15,6 +15,7 @@ Kernel A culls per ray from the scene's cull table, which the brute-force
 plain version does not read: the culls must leave every plane bit for bit.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -38,8 +39,11 @@ from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
                                                        pack_actions)
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim import state as tsim
+from raytracing_cuda_tpu_torch.sim.actions import Action
+from raytracing_cuda_tpu_torch.utils import profiling
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 from raytracing_cuda_tpu_torch.utils.images import load_png
+from raytracing_cuda_tpu_torch.utils.timing import graph_nodes
 
 pytestmark = pytest.mark.cuda
 
@@ -1026,3 +1030,153 @@ def test_plain_graph_replays_never_sync(dev, path):
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
+
+
+# --- tracing: the marked variant of the frame graph, the spans ---
+
+
+def fly_actions(n: int, seed: int) -> list:
+    """n Actions of the benchmark's `fly` traffic from seed."""
+    from rtbench import generator
+
+    flight = generator.Flight(generator.load_traffic("fly"), seed)
+    return [Action.unpack(v) for v in flight.take(n)]
+
+
+def profiled_trace(fn, path: str):
+    """fn() under a torch.profiler session of the card (shapes recorded,
+    so the spans carry their call numbers), exported to path and parsed
+    with the program's spans kept: (rtbench Trace, [engine.replay spans]).
+    Traced again, up to 4 times, while the trace holds no kernel (now and
+    then a trace comes back without its device events)."""
+    from rtbench import trace as rtrace
+
+    for _ in range(4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA],
+                record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        tr = rtrace.parse(path)
+        if tr.kernels("raytrace_kernel"):
+            with open(path) as f:
+                replays = sorted((e for e in json.load(f)["traceEvents"]
+                                  if e.get("ph") == "X"
+                                  and e.get("name") == "engine.replay"),
+                                 key=lambda e: float(e["ts"]))
+            return tr, replays
+    pytest.fail("4 torch.profiler traces held no kernel")
+
+
+def test_marked_variant_frames_equal_the_plain_graph(dev):
+    """Ten calls of the fly's actions: an Engine under the profiler
+    replays the marked variant (captured at its first traced call), one
+    without it the plain graph; frames and states equal bit for bit."""
+    plain, traced = small_engine("cuda"), small_engine("cuda")
+    for eng in (plain, traced):
+        eng.step_and_frame()             # eager
+    acts = fly_actions(10, seed=2 ** 31 + 17)
+    want = [plain.step_and_frame(a, 1 / 60).clone() for a in acts]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        got = [traced.step_and_frame(a, 1 / 60).clone() for a in acts]
+        torch.cuda.synchronize()
+    assert set(traced._single.traced) == {("frame", 1)}
+    assert set(traced._single.graphs) == set()
+    assert set(plain._single.traced) == set()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert states_equal(traced.state, plain.state)
+
+
+def test_marked_step_has_four_more_nodes(dev):
+    """The frame step captured inside marking() holds the plain step's
+    graph nodes and the four marks."""
+    eng = small_engine("cuda")
+    eng.step_and_frame()                 # eager: kernels built and loaded
+    live = eng._single.live[0]
+    av = eng._upload(Action.idle().pack(1 / 60)[None])
+
+    def fn():
+        eng._step_render("frame", live, av)
+
+    plain = graph_nodes(fn)
+    with profiling.marking():
+        marked = graph_nodes(fn)
+    assert marked == plain + 4
+    assert graph_nodes(fn) == plain
+
+
+@pytest.fixture(scope="module")
+def five_traced_calls(dev, tmp_path_factory):
+    """A warm Engine's five step_and_frame calls of the fly under the
+    profiler → (Trace, engine.replay spans)."""
+    eng = small_engine("cuda")
+    for _ in range(2):                   # eager, then the plain capture
+        eng.step_and_frame()
+    acts = fly_actions(5, seed=99)
+    path = str(tmp_path_factory.mktemp("marks") / "trace.json")
+    return profiled_trace(
+        lambda: [eng.step_and_frame(a, 1 / 60) for a in acts], path)
+
+
+def test_profiled_calls_hold_four_marks_each_in_order(five_traced_calls):
+    from rtbench import stages
+
+    tr, _ = five_traced_calls
+    marks = [e for e in tr.device if e.cat == "kernel"
+             and stages.stage_of(e.name) is not None]
+    assert len(marks) == 20
+    got = stages.frames(tr)
+    assert len(got) == 5
+    for f in got:
+        order = [f.marks[s] for s in stages.STAGES]
+        assert all(a.ts + a.dur <= b.ts for a, b in zip(order, order[1:]))
+        assert f.marks["packs"].ts < f.a_end <= f.marks["sky"].ts
+        assert f.step_kernels > 0 and f.packs_kernels > 0
+
+
+def test_each_begin_mark_starts_after_its_replay_span(five_traced_calls):
+    """On the trace's one clock: the k-th call's stage_mark_begin starts
+    after the k-th engine.replay span has begun."""
+    from rtbench import stages
+
+    tr, replays = five_traced_calls
+    begins = sorted((e for e in tr.device if e.cat == "kernel"
+                     and stages.stage_of(e.name) == "begin"),
+                    key=lambda e: e.ts)
+    assert len(replays) == len(begins) == 5
+    calls = [r["args"]["call"] for r in replays]
+    assert calls == list(range(calls[0], calls[0] + 5))
+    for r, b in zip(replays, begins):
+        assert b.ts >= float(r["ts"])
+
+
+def test_first_call_after_the_profiler_replays_the_plain_graph(dev):
+    eng = small_engine("cuda")
+    for _ in range(2):                   # eager, then the plain capture
+        eng.step_and_frame()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        eng.step_and_frame()
+        torch.cuda.synchronize()
+    replayed = []
+
+    class Spy:
+        def __init__(self, graph, name):
+            self.graph, self.name = graph, name
+
+        def replay(self):
+            replayed.append(self.name)
+            self.graph.replay()
+
+    key = ("frame", 1)
+    for table, name in ((eng._single.graphs, "plain"),
+                        (eng._single.traced, "marked")):
+        table[key] = [g._replace(graph=Spy(g.graph, name))
+                      for g in table[key]]
+    eng.step_and_frame()
+    assert replayed == ["plain"]

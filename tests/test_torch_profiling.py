@@ -1,51 +1,16 @@
-"""The port's profiling hooks: FrameProbe against the JAX package's on the
-same clock readings, a CPU torch.profiler trace written to disk, and
-FrameTimer's per-batch intervals."""
+"""The port's profiling hooks: a CPU torch.profiler trace written to disk,
+and FrameTimer's per-batch intervals."""
 
 import json
 import os
 import time
 
-import pytest
 import torch
 
-from raytracing_cuda_tpu.utils import profiling as jprof
 from raytracing_cuda_tpu_torch.utils import profiling as tprof
 from raytracing_cuda_tpu_torch.utils.timing import FrameTimer
 
 torch.set_num_threads(2)
-
-
-def run_probe(cls, readings, window):
-    it = iter(readings)
-    orig = time.perf_counter
-    time.perf_counter = lambda: next(it)
-    try:
-        p = cls(window=window)
-        dts = [p.tick() for _ in readings]
-    finally:
-        time.perf_counter = orig
-    return dts, p.stats()
-
-
-@pytest.mark.parametrize("window", [3, 16, 240])
-def test_frame_probe_matches_jax(window):
-    readings = [0.0]
-    for i in range(40):
-        readings.append(readings[-1] + 0.001 * (1 + (i * 7) % 5))
-    assert run_probe(tprof.FrameProbe, readings, window) == run_probe(
-        jprof.FrameProbe, readings, window)
-
-
-def test_frame_probe_empty_and_live():
-    p = tprof.FrameProbe(window=16)
-    assert p.stats() == {"frames": 0}
-    for _ in range(5):
-        p.tick()
-        time.sleep(0.002)
-    s = p.stats()
-    assert s["frames"] == 4 and s["mean_ms"] >= 1.0
-    assert s["p99_ms"] >= s["p50_ms"] > 0
 
 
 def test_cpu_trace_writes_chrome_trace(tmp_path):
