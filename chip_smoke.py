@@ -6,21 +6,25 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu) and kernel A's
-     diagnostic arms (csrc/raytrace_arms.cu) with nvcc, in parallel; ptxas
-     must report no spills, and each kernel's registers are printed;
+  2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu), kernel A's
+     diagnostic arms (csrc/raytrace_arms.cu) and the packs kernel
+     (csrc/packs.cu) with nvcc, in parallel; ptxas must report no spills,
+     and each kernel's registers are printed;
   3. each kernel against its plain PyTorch version on the card at
      1280x720, bit for bit, for the four golden states, the worst pose, the
      seven degenerate states (EXTREME) and the classic scene, with times,
-     on packs built on the card (each held against the same state's packs
-     built on the CPU: equal but for the trig-inherited entries, and the
-     rays kernel A renders apart between the two counted);
+     on packs built on the card (the packs kernel's, equal bit for bit to
+     the torch packs on the card, and each held against the same state's
+     packs built on the CPU: equal but for the trig-inherited entries, and
+     the rays kernel A renders apart between the two counted); the packs
+     kernel's and the torch packs' device times by CUDA graph replay;
      kernel A at a size whose warp tiles hang over the frame's edges
      (ODD_SIZE), one frame and 3 frames per launch; kernel A's counting
      launch and its lane-efficiency line;
   4. the slice: Engine(device="cuda") renders the four golden states
      against tests/golden/tpu/*.png, then runs the idle animated loop;
-     both kernels' launch counters must have moved in this phase;
+     the three kernels' launch counters (A, B, the packs) must have
+     moved in this phase;
   5. the batch path: both kernels' K-frame forms against their plain
      versions and single-frame launches, step_and_frame_batch against
      step_and_frame, Engine.run(batch=8) against Engine.run; the batch
@@ -369,8 +373,10 @@ def rays_apart(planes_a, planes_b) -> int:
 def reset_counts():
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
 
+    from raytracing_cuda_tpu_torch.render.packs import pack_frame
+
     for fn in (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
-               fx.fxaa, fx.fxaa_batch, fx.fxaa_ext):
+               fx.fxaa, fx.fxaa_batch, fx.fxaa_ext, pack_frame):
         fn.launches = 0
     cuda_rt.raytrace_planes.arm_launches = 0
     cuda_rt.raytrace_planes_batch.arm_launches = 0
@@ -381,8 +387,10 @@ def reset_counts():
 
 def read_counts() -> dict:
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
+    from raytracing_cuda_tpu_torch.render.packs import pack_frame
 
-    return {"raytrace_megakernel": cuda_rt.raytrace_planes.launches,
+    return {"packs": pack_frame.launches,
+            "raytrace_megakernel": cuda_rt.raytrace_planes.launches,
             "raytrace_megakernel_k8": cuda_rt.raytrace_planes_batch.launches,
             "raytrace_megakernel_k8_frames":
                 cuda_rt.raytrace_planes_batch.frames,
@@ -724,7 +732,9 @@ def main() -> int:
     from raytracing_cuda_tpu_torch.app.loop import Engine
     from raytracing_cuda_tpu_torch.core.types import to_device
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
-    from raytracing_cuda_tpu_torch.render.pipeline import frame_packs
+    from raytracing_cuda_tpu_torch.render.packs import pack_base, pack_frame
+    from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
+                                                           frame_packs_torch)
     from raytracing_cuda_tpu_torch.render.reference import quantize
     from raytracing_cuda_tpu_torch.scene.builders import (
         ISLAND_SPH_CLUSTERS, ISLAND_TRI_CLUSTERS, ISLAND_TRI_SUBS,
@@ -751,10 +761,10 @@ def main() -> int:
 
     print(_build.nvcc_version(), flush=True)
     t0 = time.perf_counter()
-    libs = ("raytrace", "raytrace_arms", "fxaa")
+    libs = ("raytrace", "raytrace_arms", "fxaa", "packs")
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(_build.load, libs))
-    print(f"built both kernels and kernel A's arms in "
+    print(f"built both kernels, kernel A's arms and the packs kernel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in libs:
         log = _build.BUILD_LOG[name]
@@ -789,6 +799,14 @@ def main() -> int:
         cpu_packs = frame_packs(sc, st, H, W, None, *cl)
         packs = frame_packs(on_card[id(sc)], sim.state_to(st, dev), H, W,
                             None, *cl)
+        torch_packs = frame_packs_torch(on_card[id(sc)],
+                                        sim.state_to(st, dev), H, W, None,
+                                        *cl)
+        require(all(torch.equal(a, b) for a, b in zip(packs, torch_packs)
+                    if isinstance(a, torch.Tensor))
+                and packs[2:4] == torch_packs[2:4],
+                f"{name}: the packs kernel's packs equal the torch packs on "
+                f"the card bit for bit")
         coef, params, nt, ns, cu = packs
         bad, worst = pack_differences(cpu_packs, packs)
         trig_ulp = max(trig_ulp, worst)
@@ -836,6 +854,25 @@ def main() -> int:
         inputs[name] = (coef, params, nt, ns, cu, bk, kern, base_of)
         if work is not None:
             works[name] = work
+
+    # the packs: one launch of the kernel against the torch ops it
+    # replaces, by CUDA graph replay at the worst pose
+    island = on_card[id(scene)]
+    island_base = pack_base(island, *clusters)
+    worst_st = sim.state_to(make_state(**POSES["worst_pose"]), dev)
+    ms_packs = graph_device_ms(lambda: frame_packs(
+        island, worst_st, H, W, None, *clusters, inputs["worst_pose"][4],
+        island_base), 50)
+    ms_packs_torch = graph_device_ms(lambda: frame_packs_torch(
+        island, worst_st, H, W, None, *clusters, inputs["worst_pose"][4]), 5)
+    # the base read once and the table and params written once
+    bound_packs = bound(2 * 4 * (island_base.coef.numel()
+                                 + island_base.params.numel()), 0)
+    print(f"packs: kernel {ms_packs:.4f} ms, torch ops {ms_packs_torch:.4f} "
+          f"ms a frame (CUDA graph replay); bound {bound_packs[0]:.6f} ms "
+          f"({bound_packs[1]}) [{card}]", flush=True)
+    report["packs_ms"] = {"kernel": ms_packs, "torch": ms_packs_torch,
+                          "bound": bound_packs[0]}
 
     # kernel A where the last warp tiles hang over the right and bottom
     # edges: one frame per launch, and 3 frames per launch
@@ -945,6 +982,7 @@ def main() -> int:
                               procedural_sky_shape=SKY_SHAPE), device=DEVICE)
     cuda_rt.raytrace_planes.launches = 0
     fx.fxaa.launches = 0
+    pack_frame.launches = 0
     worst = 0.0
     for name, kw in CASES.items():
         eng.set_state(make_state(**kw))
@@ -961,7 +999,7 @@ def main() -> int:
     eng.set_state(make_state(6.0))
     stats = eng.run(args.frames)
     launches = {"raytrace": cuda_rt.raytrace_planes.launches,
-                "fxaa": fx.fxaa.launches}
+                "fxaa": fx.fxaa.launches, "packs": pack_frame.launches}
     ms = sorted(stats.frame_ms)
     print(f"slice: Engine.run({args.frames}) idle animated loop 1280x720 "
           f"island: {stats.fps:.2f} fps, frame ms median "
@@ -969,7 +1007,7 @@ def main() -> int:
           f"(CUDA events) [{card}]", flush=True)
     print(f"launch counts in the slice phase: {launches}", flush=True)
     require(all(v > 0 for v in launches.values()),
-            "both kernels launched by the main path")
+            "the three kernels launched by the main path")
     report.update(slice=stats.as_dict(), launches=launches,
                   golden_rmse_max=worst)
 
@@ -2604,6 +2642,7 @@ def main() -> int:
                 frame_counts.append(read_counts())
                 frames_ok &= torch.equal(got, eager if st is None else ref)
             launched = all(c["raytrace_megakernel"] == 1 and c["fxaa"] == 1
+                           and c["packs"] == 1
                            for c in (counts, *frame_counts))
             if name == "worst_pose":
                 require(launched and frames_ok,
@@ -2940,6 +2979,12 @@ def main() -> int:
     # --- 14. report ---
     phase(14)
     kernels = [
+        {"name": "packs", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/packs.cu",
+         "replaces": None, "launches": launches["packs"],
+         "max_abs_err": 0.0, "ms": ms_packs, "plain_ms": ms_packs_torch,
+         "bound_ms": bound_packs[0], "bound_by": bound_packs[1],
+         "library_ms": None},
         {"name": "raytrace_megakernel", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/raytrace.cu",
          "replaces": "raytracing_cuda_tpu/render/pallas_rt.py:1151",

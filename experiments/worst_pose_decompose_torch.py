@@ -6,13 +6,13 @@ experiments/worst_pose_decompose.py).
 Device stages, each captured once in a CUDA graph of n calls and replayed
 in turns within every rep (device time by CUDA graph replay; the stage
 costs are the differences of their medians): the state step and the packs
-on the device (sim.animate_packed, then pipeline.frame_packs: derive_frame,
-camera_rays, the packing and the cluster bounds); kernel A alone on those
-packs; kernel A + the sky lookup + quantize (pipeline._base); the same +
-FXAA (kernel B, selected by the state's toggle); and the whole frame as
-the Engine's CUDA graph runs it (Engine._step_render: step, packs, kernel
-A, sky, kernel B). Beside them, by the host clock (median of reps of n
-calls): the host time of one Engine.step_and_frame call on the card (the
+on the device (sim.animate_packed, then pipeline.frame_packs: on a card one
+launch of csrc/packs.cu over the Engine's pack base); kernel A alone on
+those packs; kernel A + the sky lookup + quantize (pipeline._base); the
+same + FXAA (kernel B, selected by the state's toggle); and the whole frame
+as the Engine's CUDA graph runs it (Engine._step_render: step, packs,
+kernel A, sky, kernel B). Beside them, by the host clock (median of reps of
+n calls): the host time of one Engine.step_and_frame call on the card (the
 graph's replay enqueued, the action vector copied, the frame copied out),
 and the CPU Engine's host half as the old reference, the same code on CPU
 tensors: the state step, derive_frame + camera_rays, and the packing

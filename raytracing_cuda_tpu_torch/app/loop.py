@@ -2,14 +2,15 @@
 raytracing_cuda_tpu/app/loop.py).
 
 The Engine owns the scene, the static sky stack, the scene's cull table
-and the frame state, all on its device from construction. `step_and_frame`
-is the interactive loop's frame, on that device as the JAX Engine's one
-jitted dispatch (loop.py:211-217): the state machine steps on the packed
-action vector (sim.animate_packed), the frame's scene and rays are derived
-and packed into the coefficient table and params vector, then the
-megakernel, the sky lookup + quantize, and FXAA selected by the state's
-toggle. The one host-to-device copy per frame is the (16,) action vector
-(K of them for a batch), from pinned memory on a card.
+and pack base (render/packs.py) and the frame state, all on its device
+from construction. `step_and_frame` is the interactive loop's frame, on
+that device as the JAX Engine's one jitted dispatch (loop.py:211-217): the
+state machine steps on the packed action vector (sim.animate_packed), the
+frame's coefficient table and params vector are packed (on a card one
+launch of csrc/packs.cu over the pack base), then the megakernel, the
+sky lookup + quantize, and FXAA selected by the state's toggle. The one
+host-to-device copy per frame is the (16,) action vector (K of them for a
+batch), from pinned memory on a card.
 
 On a card every entry point runs as the JAX Engine's jitted programs do,
 whatever config.path is, one device program per call: a CUDA graph of the
@@ -42,19 +43,19 @@ frame's device time in the trace), captured at the first such call in a
 pool of its own. The graph replayed with the profiler off has no mark.
 
 A sharded Engine (its step calls and its `frame()`, which renders without
-stepping), and `render_script_dp`, run the JAX package's shard_map
-programs the same way, one graph per mesh entry per call: every entry
-holds a replica of the state on its device (the JAX package's replicated
-state, in_specs=P()) beside that device's copy of the scene, cull table
+stepping), and `render_script_dp`, run the JAX package's shard_map programs
+the same way, one graph per mesh entry per call: every entry holds a
+replica of the state on its device (the JAX package's replicated state,
+in_specs=P()) beside that device's copy of the scene, cull table, pack base
 and sky stack, uploads the action vectors itself, steps its replica and
 renders its rows (parallel/mesh.py entry_bands, recomputing its halo rows
 instead of exchanging them) or its block of frames (parallel/frames.py
 script_entry, after scanning all K actions); no entry waits on another
-within a call. The host then copies each entry's rows into the frame on
-the Engine's device (parallel/mesh.py place_bands): n graph launches, n
-uploads and n copies per call. The replicas stay equal because every
-entry steps the same actions with the same code. On the CPU the same
-per-entry code runs eagerly with the plain kernels.
+within a call. The host then copies each entry's rows into the frame on the
+Engine's device (parallel/mesh.py place_bands): n graph launches, n uploads
+and n copies per call. The replicas stay equal because every entry steps
+the same actions with the same code. On the CPU the same per-entry code
+runs eagerly with the plain kernels.
 
 `step_and_frame_batch` renders K frames with one launch of each kernel
 (render/pipeline.py `batch_packs` / `frames_from_packs`); `run(batch=K)`
@@ -107,12 +108,13 @@ from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
                                                      make_mesh, place_bands,
                                                      render_bands,
                                                      render_bands_plain)
-from raytracing_cuda_tpu_torch.render.cuda_rt import (cull_groups, cull_table,
-                                                      pack_scene,
+from raytracing_cuda_tpu_torch.render.cuda_rt import (cull_table,
                                                       raytrace_planes,
                                                       raytrace_planes_batch)
 from raytracing_cuda_tpu_torch.render.fxaa import (apply_fxaa, fxaa,
                                                    fxaa_batch, fxaa_ext)
+from raytracing_cuda_tpu_torch.render.packs import (base_to, pack_base,
+                                                    pack_frame)
 from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
                                                        frame_packs,
                                                        frames_from_packs,
@@ -166,7 +168,7 @@ def initial_state(config: RenderConfig, device="cpu") -> sim.FrameState:
 
 def _launch_counters() -> list:
     """(wrapper, attribute) of every kernel launch counter a frame moves."""
-    return [(raytrace_planes, "launches"),
+    return [(pack_frame, "launches"), (raytrace_planes, "launches"),
             (raytrace_planes_batch, "launches"),
             (raytrace_planes_batch, "frames"), (fxaa, "launches"),
             (fxaa_batch, "launches"), (fxaa_batch, "frames"),
@@ -263,18 +265,18 @@ class Engine:
                 raise ValueError("share_assets_from needs the same device, "
                                  "scene, sky and sky form")
             self.scene, self.cull, state = src.scene, src.cull, src.state
+            self.pack_base = src.pack_base
             self.sky_pack, self.sky_texels = src.sky_pack, src.sky_texels
             self.sky_h, self.sky_w = src.sky_h, src.sky_w
         else:
             self.scene = to_device(build_named_scene(config.scene),
                                    self.device)
-            # kernel A's cull table depends only on the scene's layout:
-            # built once, on the device
-            self.cull = cull_table(
-                pack_scene(self.scene, self.tri_clusters, self.sph_clusters),
-                cull_groups(self.scene.n_triangles, self.scene.n_spheres,
-                            self.tri_clusters, self.sph_clusters,
-                            self.tri_subs))
+            # the packs' frame-invariant base and kernel A's cull table
+            # depend only on the scene's layout: built once, on the device
+            self.pack_base = pack_base(self.scene, self.tri_clusters,
+                                       self.sph_clusters, self.tri_subs)
+            self.cull = cull_table(self.pack_base.coef,
+                                   self.pack_base.layout[2])
             texels = load_skies(config.sky_source, config.sky_downsample,
                                 config.procedural_sky_shape).texels
             self.sky_h, self.sky_w = texels.shape[1:3]
@@ -289,14 +291,16 @@ class Engine:
         # CUDA graph captures a call (the CPU); on a card every call runs
         # them masked, the form its graphs capture (render/fast.py)
         self._early_exit = self.device.type != "cuda"
-        # the scene, cull table and the sky the path reads (the static
-        # stack, or the uint8 panoramas) on each device that renders,
-        # copied to a device once, at its first use
+        # the scene, cull table, pack base and the sky the path reads (the
+        # static stack, or the uint8 panoramas) on each device that
+        # renders, copied to a device once, at its first use
         self._scenes = dict(getattr(src, "_scenes", {}))
         self._culls = dict(getattr(src, "_culls", {}))
+        self._pack_bases = dict(getattr(src, "_pack_bases", {}))
         self._skies = dict(getattr(src, "_skies", {}))
         self._scenes[self.device] = self.scene
         self._culls[self.device] = self.cull
+        self._pack_bases[self.device] = self.pack_base
         self._skies[self.device] = self.sky_pack if static else self.sky_texels
         self._assets_for(self.mesh or [])
         # the state: a snapshot handed out (None while only replicas hold
@@ -357,9 +361,9 @@ class Engine:
         return mesh
 
     def _assets_for(self, mesh) -> None:
-        """Put the scene, the cull table, the sky the path reads and the
-        step's constants on every device of mesh, once per device, before
-        any capture."""
+        """Put the scene, the cull table, the pack base, the sky the path
+        reads and the step's constants on every device of mesh, once per
+        device, before any capture."""
         for d in dict.fromkeys(mesh):
             if d.type != self.device.type:
                 raise ValueError(f"a {self.device.type} engine cannot render "
@@ -368,6 +372,8 @@ class Engine:
                 self._scenes[d] = to_device(self.scene, d)
             if d not in self._culls:
                 self._culls[d] = self.cull.to(d)
+            if d not in self._pack_bases:
+                self._pack_bases[d] = base_to(self.pack_base, d)
             if d not in self._skies:
                 self._skies[d] = self._skies[self.device].to(d)
             sim.device_constants(d)
@@ -450,11 +456,12 @@ class Engine:
 
     def _packs(self, state=None):
         """The packs of `state` (default: the current one) on the engine
-        device, with the engine's cull table."""
+        device, with the engine's cull table and pack base."""
         c = self.config
         return frame_packs(self.scene, self.state if state is None else state,
                            c.height, c.width, c.aspect, self.tri_clusters,
-                           self.sph_clusters, self.tri_subs, self.cull)
+                           self.sph_clusters, self.tri_subs, self.cull,
+                           self.pack_base)
 
     def _bands(self, coefs, params, n_tri: int, n_sph: int, states):
         """K frames in row bands over the engine's mesh → (K, H, W, 3)
@@ -490,6 +497,7 @@ class Engine:
                                 path=self.path, tri_clusters=self.tri_clusters,
                                 sph_clusters=self.sph_clusters,
                                 t_subs=self.tri_subs, cull=self.cull,
+                                base=self.pack_base,
                                 early_exit=(self._early_exit
                                             if early_exit is None
                                             else early_exit))
@@ -548,7 +556,7 @@ class Engine:
                 coefs, params, n_tri, n_sph, _, states = batch_packs(
                     self.scene, state, avs, c.height, c.width, c.aspect,
                     self.tri_clusters, self.sph_clusters, self.tri_subs,
-                    self.cull)
+                    self.cull, self.pack_base)
                 img = self._bands(coefs, params, n_tri, n_sph, states)
             if kind != "batch":
                 img = img[0]
@@ -568,7 +576,7 @@ class Engine:
             coefs, params, n_tri, n_sph, _, states = batch_packs(
                 self.scene, state, avs, c.height, c.width, c.aspect,
                 self.tri_clusters, self.sph_clusters, self.tri_subs,
-                self.cull)
+                self.cull, self.pack_base)
             return states[-1], frames_from_packs(
                 coefs, params, n_tri, n_sph, self.sky_pack, self.sky_h,
                 self.sky_w, states, c.height, c.width, self.cull)
@@ -604,7 +612,7 @@ class Engine:
         coefs, params, n_tri, n_sph, cull = stack_packs(
             self._scenes[d], states, c.height, c.width, c.aspect,
             self.tri_clusters, self.sph_clusters, self.tri_subs,
-            self._culls[d])
+            self._culls[d], self._pack_bases[d])
         return states[-1], entry_bands(
             coefs, params, n_tri, n_sph, states, self._skies[d],
             self.sky_h, self.sky_w, entry=entry, n=len(self.mesh),
@@ -881,7 +889,7 @@ class Engine:
                 width=c.width, aspect=c.aspect, interleave=interleave,
                 tri_clusters=self.tri_clusters,
                 sph_clusters=self.sph_clusters, t_subs=self.tri_subs,
-                cull=self._culls[d])
+                cull=self._culls[d], base=self._pack_bases[d])
 
         outs, _ = self._call(
             self._replicas_for(flat),

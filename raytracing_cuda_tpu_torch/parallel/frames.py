@@ -129,20 +129,20 @@ def script_entry(scene: Scene, state: FrameState, vecs, sky_pack,
                  n_frames: int, n_rows: int, height: int, width: int,
                  aspect: float | None = None, interleave: int = 1,
                  tri_clusters=None, sph_clusters=None, t_subs=None,
-                 cull=None):
+                 cull=None, base=None):
     """Entry (group, row) of an n_frames x n_rows mesh, on the device of
-    `scene` (where state, vecs (K, 16), sky_pack and cull lie) → (the K-th
-    state, its rows of its group's frames: (K / n_frames, interleave, sub,
-    width, 3) uint8, see parallel.mesh.entry_bands). It steps all K states
-    from `state`, packs frames group * K / n_frames … of them and renders
-    row part `row` of n_rows (whole frames where n_rows * interleave ==
-    1)."""
+    `scene` (where state, vecs (K, 16), sky_pack, cull and the pack base
+    lie) → (the K-th state, its rows of its group's frames: (K / n_frames,
+    interleave, sub, width, 3) uint8, see parallel.mesh.entry_bands). It
+    steps all K states from `state`, packs frames group * K / n_frames … of
+    them and renders row part `row` of n_rows (whole frames where n_rows *
+    interleave == 1)."""
     per = frame_blocks(len(vecs), n_frames, "frame axis")
     states = step_states(state, vecs, scene.color.device)
     block = states[group * per:(group + 1) * per]
     coefs, params, nt, ns, cull = stack_packs(
         scene, block, height, width, aspect, tri_clusters, sph_clusters,
-        t_subs, cull)
+        t_subs, cull, base)
     return states[-1], entry_bands(
         coefs, params, nt, ns, block, sky_pack, sky_h, sky_w, entry=row,
         n=n_rows, height=height, width=width, interleave=interleave,

@@ -5,11 +5,13 @@
 
 One frame is, on one device as in the JAX package's jitted step: derive the
 frame's scene and rays, pack them into the coefficient table and params
-vector (`frame_packs`), then the megakernel (7 planes), the flat pair sky
-lookup from the static panorama stack, `quantize(rgb + mw·sky)`
-(reference.py:139-142), and FXAA selected by the state's toggle. Every
-step runs on the device of the scene and state; nothing is read back to the
-host, so a CUDA graph can replay it (app/loop.py).
+vector (`frame_packs`: on a card one launch of csrc/packs.cu over the
+scene's pack base, render/packs.py), then the megakernel (7 planes), the
+flat pair sky lookup from the static panorama stack,
+`quantize(rgb + mw·sky)` (reference.py:139-142), and FXAA selected by the
+state's toggle. Every step runs on the device of the scene and state;
+nothing is read back to the host, so a CUDA graph can replay it
+(app/loop.py).
 
 A batch of K frames steps the state machine K times, stacks the K frames'
 packs, and launches each kernel once over all K frames; frame k equals what
@@ -35,6 +37,8 @@ from raytracing_cuda_tpu_torch.render.cuda_rt import (
     sph_cluster_norm, tri_cluster_pads)
 from raytracing_cuda_tpu_torch.render.fast import render_base_image_fast
 from raytracing_cuda_tpu_torch.render.fxaa import apply_fxaa
+from raytracing_cuda_tpu_torch.render.packs import (layout_key, pack_base,
+                                                    pack_frame)
 from raytracing_cuda_tpu_torch.render.reference import (quantize,
                                                         render_base_image)
 from raytracing_cuda_tpu_torch.scene.textures import (
@@ -52,15 +56,44 @@ PLAIN_RENDERERS = {"fast": render_base_image_fast,
 
 def frame_packs(scene: Scene, state: FrameState, height: int, width: int,
                 aspect: float | None = None, tri_clusters=None,
-                sph_clusters=None, t_subs=None, cull=None):
-    """The packs of a frame (derive_frame, camera_rays, then the packing of
-    render_base_planes_pallas, pallas_rt.py:1226-1254) → (coef, params,
-    n_tri_rows, n_sph_rows, cull) on the device of `scene` (a state held
-    elsewhere is copied there first): the float32 table and params, and
-    kernel A's int32 cull table (cull_table), whose group g holds the rows
-    under the bound written into params as bound g. The table depends only
-    on the scene's layout: a `cull` given is returned as it is, else it is
-    built."""
+                sph_clusters=None, t_subs=None, cull=None, base=None):
+    """The packs of a frame → (coef, params, n_tri_rows, n_sph_rows, cull)
+    on the device of `scene` (a state held elsewhere is copied there
+    first): the float32 table and params, and kernel A's int32 cull table
+    (cull_table), whose group g holds the rows under the bound written into
+    params as bound g. On a card they are one launch of csrc/packs.cu
+    (render/packs.py pack_frame) over `base`, the PackBase of the scene's
+    layout on that device (built where None); on the CPU frame_packs_torch,
+    which reads no base; the two give the same floats on the same device.
+    A base of another layout is refused on every device. The cull table
+    depends only on the scene's layout: a `cull` given is returned as it
+    is, else it is built."""
+    if t_subs and not tri_clusters:
+        raise ValueError("t_subs requires tri_clusters")
+    if base is not None and base.layout != layout_key(
+            scene, tri_clusters, sph_clusters, t_subs):
+        raise ValueError("the pack base was packed for another scene layout "
+                         "than the scene and cluster arguments give")
+    if scene.color.device.type != "cuda":
+        return frame_packs_torch(scene, state, height, width, aspect,
+                                 tri_clusters, sph_clusters, t_subs, cull)
+    if base is None:
+        base = pack_base(scene, tri_clusters, sph_clusters, t_subs)
+    coef, params = pack_frame(base, state_to(state, scene.color.device),
+                              width / height if aspect is None else aspect)
+    if cull is None:
+        cull = cull_table(base.coef, base.layout[2])
+    return coef, params, base.n_tri_rows, base.n_sph_rows, cull
+
+
+def frame_packs_torch(scene: Scene, state: FrameState, height: int,
+                      width: int, aspect: float | None = None,
+                      tri_clusters=None, sph_clusters=None, t_subs=None,
+                      cull=None):
+    """frame_packs in torch ops on any device (derive_frame, camera_rays,
+    then the packing of render_base_planes_pallas, pallas_rt.py:1226-1254):
+    the whole table and params packed anew. The CPU's frame_packs, and the
+    reference the card's packs kernel is held to."""
     if t_subs and not tri_clusters:
         raise ValueError("t_subs requires tri_clusters")
     state = state_to(state, scene.color.device)
@@ -90,7 +123,7 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
                  aspect: float | None = None,
                  fxaa_static: bool | None = None, path: str = "fast",
                  tri_clusters=None, sph_clusters=None,
-                 t_subs=None, cull=None,
+                 t_subs=None, cull=None, base=None,
                  early_exit: bool = True) -> torch.Tensor:
     """Render one frame → (height, width, 3) uint8 on the device of
     `sky_texels`, the four panoramas (4, H, W, 3) uint8.
@@ -102,12 +135,12 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
     the straight-line parity implementation), or "auto": the megakernel
     (the CUDA kernel on a card, its plain version on the CPU) with the sky
     looked up in the packed per-frame blend; only "auto" reads the cluster
-    arguments and `cull`, the scene's cull table (frame_packs; built for
-    the frame where None, the same table bit for bit). early_exit=False
-    runs the "fast" renderer with every bounce and sweep masked and no
-    value read back (render.fast; a CUDA graph can capture it); it changes
-    no pixel. FXAA is kernel B on a card and its plain version on the CPU
-    on every path.
+    arguments, `cull`, the scene's cull table, and `base`, its pack base
+    (frame_packs; each built for the frame where None, the same bit for
+    bit). early_exit=False runs the "fast" renderer with every bounce and
+    sweep masked and no value read back (render.fast; a CUDA graph can
+    capture it); it changes no pixel. FXAA is kernel B on a card and its
+    plain version on the CPU on every path.
     """
     if aspect is None:
         aspect = width / height
@@ -118,7 +151,7 @@ def render_frame(scene: Scene, state: FrameState, sky_texels: torch.Tensor,
     if path == "auto":
         coef, params, nt, ns, cull = frame_packs(
             scene, state, height, width, aspect, tri_clusters, sph_clusters,
-            t_subs, cull)
+            t_subs, cull, base)
         r, g, b, mw, mdx, mdy, mdz = raytrace_planes(
             coef.to(dev), params.to(dev), height, width, nt, ns,
             cull=cull.to(dev))
@@ -202,7 +235,7 @@ def pack_actions(actions, dts):
 
 def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
                 width: int, aspect: float | None = None, tri_clusters=None,
-                sph_clusters=None, t_subs=None, cull=None):
+                sph_clusters=None, t_subs=None, cull=None, base=None):
     """The packs of a K-frame batch on the scene's device: step the state
     machine once per packed action (pipeline.py:201-206), then each new
     state's frame_packs, stacked → (coefs (K, n, N_CHANNELS), params (K,
@@ -210,12 +243,13 @@ def batch_packs(scene: Scene, state: FrameState, vecs, height: int,
     actions (numpy or a tensor). Per-frame packs, so frame k's are
     bit-identical to what the single-frame path packs for states[k]; the
     frames share one scene layout and so one cull table (`cull`, built
-    when None)."""
+    when None) and, on a card, one pack base (`base`, built once when
+    None)."""
     if len(vecs) < 1:
         raise ValueError("a batch needs at least one frame")
     states = step_states(state, vecs, scene.color.device)
     return (*stack_packs(scene, states, height, width, aspect, tri_clusters,
-                         sph_clusters, t_subs, cull), states)
+                         sph_clusters, t_subs, cull, base), states)
 
 
 def step_states(state: FrameState, vecs, device) -> list:
@@ -233,11 +267,14 @@ def step_states(state: FrameState, vecs, device) -> list:
 
 def stack_packs(scene: Scene, states, height: int, width: int,
                 aspect: float | None = None, tri_clusters=None,
-                sph_clusters=None, t_subs=None, cull=None):
+                sph_clusters=None, t_subs=None, cull=None, base=None):
     """Each state's frame_packs, stacked → (coefs (K, n, N_CHANNELS),
-    params (K, N_PARAMS), n_tri_rows, n_sph_rows, cull)."""
+    params (K, N_PARAMS), n_tri_rows, n_sph_rows, cull): on a card K packs
+    launches over one base (built once where None)."""
+    if base is None and scene.color.device.type == "cuda":
+        base = pack_base(scene, tri_clusters, sph_clusters, t_subs)
     packs = [frame_packs(scene, st, height, width, aspect, tri_clusters,
-                         sph_clusters, t_subs, cull) for st in states]
+                         sph_clusters, t_subs, cull, base) for st in states]
     return (torch.stack([p[0] for p in packs]),
             torch.stack([p[1] for p in packs]), *packs[0][2:])
 

@@ -35,8 +35,13 @@ from raytracing_cuda_tpu_torch.core.types import to_device
 from raytracing_cuda_tpu_torch.parallel.mesh import (render_frame_sharded,
                                                      replicate)
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
-from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
-                                                       pack_actions)
+from raytracing_cuda_tpu_torch.render.packs import (base_to, pack_base,
+                                                    pack_frame)
+from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
+                                                       frame_packs,
+                                                       frame_packs_torch,
+                                                       pack_actions,
+                                                       stack_packs)
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.sim.actions import Action
@@ -291,6 +296,28 @@ def test_wrappers_reject_bad_inputs(dev):
             cuda_rt.raytrace_planes(coef, params, H, W, nt, ns, cull=bad)
     with pytest.raises(ValueError):
         fxaa.fxaa(torch.zeros((4, 4, 3), dtype=torch.float32, device=dev))
+    # the packs kernel: a base of another device, layout or dtype
+    scene = to_device(tb.build_scene(), dev)
+    st = tsim.state_to(make_state(6.0), dev)
+    base = pack_base(scene, *ISLAND)
+    bad_bases = [base_to(base, "cpu"),
+                 base._replace(coef=base.coef.double()),
+                 base._replace(row_class=base.row_class.long()),
+                 base._replace(moving=base.moving.cpu()),
+                 base._replace(sph_r=base.sph_r[:-1].contiguous()),
+                 base._replace(lights=(0, base.coef.shape[0]))]
+    before = pack_frame.launches
+    for bad in bad_bases:
+        with pytest.raises(ValueError):
+            frame_packs(scene, st, H, W, None, *ISLAND, base=bad)
+    with pytest.raises(ValueError, match="layout"):
+        frame_packs(scene, st, H, W, None, *ISLAND,
+                    base=pack_base(to_device(tb.build_classic_scene(), dev)))
+    with pytest.raises(ValueError):
+        pack_frame(base, st._replace(day_time=st.day_time.double()), W / H)
+    with pytest.raises(ValueError):
+        pack_frame(base, tsim.state_to(st, "cpu"), W / H)
+    assert pack_frame.launches == before
 
 
 def _batch_packs(dev, n=3):
@@ -692,6 +719,102 @@ def test_device_packs_equal_cpu_packs_but_trig(dev, name):
           f"the CPU packs' {rays_apart(kern, on_cpu_packs)} of {H * W}")
 
 
+def _packs_equal(got, want) -> bool:
+    """Two frame_packs results equal bit for bit, the row counts too."""
+    return (all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+            and tuple(got[2:4]) == tuple(want[2:4])
+            and torch.equal(got[4], want[4]))
+
+
+@pytest.mark.parametrize("name", sorted(POSES) + ["classic"])
+def test_packs_kernel_equals_torch_packs(dev, name):
+    """frame_packs on the card (one launch of csrc/packs.cu) equals the
+    torch packs on the card bit for bit, with the base built for the call
+    and with the scene's base given."""
+    scene, st, clusters = _scene_state(name)
+    scene, st = to_device(scene, dev), tsim.state_to(st, dev)
+    want = frame_packs_torch(scene, st, H, W, None, *clusters)
+    before = pack_frame.launches
+    got = frame_packs(scene, st, H, W, None, *clusters)
+    assert pack_frame.launches == before + 1
+    assert _packs_equal(got, want)
+    base = pack_base(scene, *clusters)
+    assert _packs_equal(
+        frame_packs(scene, st, H, W, None, *clusters, want[4], base), want)
+
+
+def _flight(n, seed, device, scene="island"):
+    eng = small_engine(device, scene=scene)
+    st = eng.state
+    out = []
+    for i, a in enumerate(random_actions(n, seed)):
+        st = tsim.animate(st, a, 0.02 + 0.03 * (i % 4))
+        out.append(st)
+    return eng, out
+
+
+@pytest.mark.parametrize("scene", ["island", "classic"])
+def test_packs_kernel_equals_torch_packs_over_a_flight(dev, scene):
+    """300 frames of seeded random actions from the Engine's start, stepped
+    on the card: the kernel's packs of every state equal the torch packs
+    bit for bit."""
+    eng, states = _flight(300, 17, dev, scene)
+    cl = (eng.tri_clusters, eng.sph_clusters, eng.tri_subs)
+    for i, st in enumerate(states):
+        got = frame_packs(eng.scene, st, H, W, None, *cl, eng.cull,
+                          eng.pack_base)
+        want = frame_packs_torch(eng.scene, st, H, W, None, *cl, eng.cull)
+        assert _packs_equal(got, want), i
+
+
+def test_packs_kernel_equals_torch_packs_on_random_states(dev):
+    """2,000 states drawn at random over the clock, yaw, pitch, field of
+    view, recolour weights, sea height and position: the kernel's packs
+    equal the torch packs bit for bit (every trig input of the frame)."""
+    eng = small_engine(dev)
+    cl = (eng.tri_clusters, eng.sph_clusters, eng.tri_subs)
+    rng = np.random.default_rng(23)
+    t = lambda v: torch.tensor(np.float32(v), device=dev)  # noqa: E731
+    for i in range(2000):
+        st = eng.state
+        w = rng.dirichlet(np.ones(4)).astype(np.float32)
+        st = st._replace(
+            cam=st.cam._replace(
+                pos=t(rng.uniform(-600, 600, 3)),
+                hor_angle=t(rng.uniform(0, 360)),
+                ver_angle=t(rng.uniform(-44, 44)),
+                fov=t(rng.choice([40.0, rng.uniform(10, 120)]))),
+            day_time=t(rng.uniform(0, 24)), sea_y=t(rng.uniform(-50, 50)),
+            recolor_vars=t(w))
+        got = frame_packs(eng.scene, st, H, W, None, *cl, eng.cull,
+                          eng.pack_base)
+        want = frame_packs_torch(eng.scene, st, H, W, None, *cl, eng.cull)
+        assert _packs_equal(got, want), i
+
+
+def test_batch_and_sharded_packs_equal_the_singles(dev):
+    """The K = 8 batch's packs (8 launches, stacked) equal each state's
+    single packs, and so do the packs of every entry of a sharded Engine
+    (its device's copy of the scene, cull table and base)."""
+    eng = small_engine(dev)
+    cl = (eng.tri_clusters, eng.sph_clusters, eng.tri_subs)
+    vecs = np.stack([a.pack(0.05) for a in random_actions(8, seed=8)])
+    before = pack_frame.launches
+    coefs, params, nt, ns, cull, states = batch_packs(
+        eng.scene, eng.state, vecs, H, W, None, *cl, eng.cull,
+        eng.pack_base)
+    assert pack_frame.launches == before + 8
+    for k, st in enumerate(states):
+        want = frame_packs_torch(eng.scene, st, H, W, None, *cl, eng.cull)
+        assert _packs_equal((coefs[k], params[k], nt, ns, cull), want), k
+    sharded = small_engine("cuda", sharded=["cuda:0"] * 4)
+    for d in dict.fromkeys(sharded.mesh):
+        entry = stack_packs(sharded._scenes[d], states, H, W, None, *cl,
+                            sharded._culls[d], sharded._pack_bases[d])
+        assert torch.equal(entry[0], coefs) and torch.equal(entry[1], params)
+        assert torch.equal(entry[4], cull)
+
+
 @pytest.mark.parametrize("kind", ["frame", "batch", "preview"])
 def test_graph_replay_equals_eager_device_step(dev, kind):
     """Over 60 frames (64 in batches of 8) of seeded actions, every call
@@ -733,16 +856,18 @@ def test_graph_replay_counts_the_kernels_it_launches(dev):
     torch.cuda.synchronize()
     before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
               cuda_rt.raytrace_planes_batch.launches,
-              cuda_rt.raytrace_planes_batch.frames, fxaa.fxaa_batch.launches)
+              cuda_rt.raytrace_planes_batch.frames, fxaa.fxaa_batch.launches,
+              pack_frame.launches)
     for _ in range(3):
         eng.step_and_frame()
+    assert pack_frame.launches == before[5] + 3      # one a frame replay
     eng.step_and_frame_batch(four)
     assert (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
             cuda_rt.raytrace_planes_batch.launches,
             cuda_rt.raytrace_planes_batch.frames,
-            fxaa.fxaa_batch.launches) == (
+            fxaa.fxaa_batch.launches, pack_frame.launches) == (
         before[0] + 3, before[1] + 3, before[2] + 1, before[3] + 4,
-        before[4] + 1)
+        before[4] + 1, before[5] + 3 + 4)
 
 
 def test_eager_device_step_never_syncs(dev):
