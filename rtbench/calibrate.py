@@ -1,9 +1,9 @@
 """The readings that the limits of `correct` are set from, for one cell, in
 one process on the card (set-up once):
 
-- the program's: for each of --seeds, one window of the seeded flight as a
-  run drives it, its frames and final state against the float32 reference
-  (the lower readings);
+- the program's: for each of --seeds, one window of the cell's driver as a
+  run drives it (the seeded flight, or the seeded record job), its frames
+  and final state against the float32 reference (the lower readings);
 - the controls': for each of --control-seeds, each of CONTROLS put in the
   program's place for the same window's inputs, against the float32
   reference, and judged by the cell's limits (the upper readings):
@@ -16,6 +16,9 @@ one process on the card (set-up once):
 
     python3 rtbench/calibrate.py --workload island_720p.fly \
         --seconds 10 --seeds 11 12 13 --control-seeds 11 12 13
+
+--mesh overrides a record cell's cards (a rehearsal of a 4-card cell on
+one card: --mesh cuda:0 cuda:0 cuda:0 cuda:0).
 
 One JSON line per seed on standard output. The benchmark's own runs do not
 run the control.
@@ -86,16 +89,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", nargs="+", default=None)
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         run.log("calibrate needs a CUDA card")
         return 2
     torch.set_num_threads(4)
     cell = run.Cell(args.workload)
-    eng = run.build_engine(cell.render, args.device)
+    sut = run.build(cell, args.device, args.mesh, T_START)
     for seed in dict.fromkeys(args.seeds + args.control_seeds):
         t0 = time.perf_counter()
-        result, rec = run.fly(cell, eng, seed, args.seconds, False, t0)
+        result, rec = run.drive(cell, sut, seed, args.seconds, False, t0)
         frames = run.handed_back(rec)
         final, kept = correct.reference_states(cell.render, rec["start"],
                                                rec["vecs"], set(frames))

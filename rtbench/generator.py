@@ -1,6 +1,11 @@
 """The one traffic generator: a traffic file's parameters and a seed → the
 viewer's start and its stream of per-frame inputs.
 
+A traffic file names the driver that plays it (`"driver"`, rtbench/run.py
+`DRIVERS`; `fly` where the key is absent), and so its stream: `Flight` for
+the live viewer's user (below), `Pan` for the offline `record` job's
+scripted pan.
+
 A traffic file (rtbench/traffic/<name>.json) describes a user of the
 interactive viewer: where the user starts (an hour, a camera viewpoint),
 how the mouse looks about, how the movement keys are held, how often a key
@@ -59,6 +64,11 @@ class Start(NamedTuple):
 
     hour: float
     cam_preset: int
+
+
+def driver_of(params: dict) -> str:
+    """The driver a traffic file names: `fly` where it names none."""
+    return params.get("driver", "fly")
 
 
 def _frames(seconds: float, dt: float) -> int:
@@ -232,4 +242,43 @@ class Flight:
         out = np.zeros((n, WIDTH), np.float32)
         for v in out:
             self._frame(v)
+        return out
+
+
+class Pan:
+    """The offline `record` job's input (raytracing_cuda_tpu_torch/__main__.py
+    `scripted_action`): frame i pans the mouse by
+    `pan.mouse_dx_px * sin(pan.rad_per_frame * (i + i0))` with the clock
+    scrubbed (`pan.time_control`) and nothing else held, every frame dt
+    `frame_dt_s`. The seed draws where the job starts: an hour uniform over
+    `start_hour`, a camera preset from `start_presets`, and the pan's phase
+    i0 uniform over `pan.phase_frames` (the CLI's own start is i0 = 0).
+    `take(n)` → the next n frames' packed actions, (n, 16) float32; one seed
+    gives one stream, whatever the pieces it is taken in."""
+
+    def __init__(self, params: dict, seed: int):
+        if params.get("loop") != "closed":
+            raise ValueError("the generator drives a closed loop only")
+        self.p = pan = params["pan"]
+        self.dt = float(params["frame_dt_s"])
+        rng = np.random.default_rng(seed)
+        lo, hi = params["start_hour"]
+        hour = float(np.float32(rng.uniform(lo, hi)))
+        presets = params["start_presets"]
+        self.start = Start(hour, int(presets[rng.integers(len(presets))]))
+        lo, hi = pan["phase_frames"]
+        self.phase = float(rng.uniform(lo, hi))
+        self.f = 0
+
+    def take(self, n: int) -> np.ndarray:
+        """The next n frames' packed actions, (n, 16) float32."""
+        amp, rad = float(self.p["mouse_dx_px"]), float(self.p["rad_per_frame"])
+        out = np.zeros((n, WIDTH), np.float32)
+        # each frame's sine on the host's float64, as scripted_action's
+        out[:, MDX] = [amp * np.sin((i + self.phase) * rad)
+                       for i in range(self.f, self.f + n)]
+        out[:, TIME] = self.p["time_control"]
+        out[:, TIME_PRESET] = out[:, CAM_PRESET] = -1
+        out[:, DT] = np.float32(self.dt)
+        self.f += n
         return out

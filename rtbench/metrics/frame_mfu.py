@@ -1,10 +1,11 @@
-"""The whole frame (`Engine.step_and_frame`): the frame function's least
-time (rtbench/counts/frame.py) as a share of the card's time per frame,
-idle included, over the frames of a traced run that the harness times by
-CUDA events before its profiler slice (run["device_frames"]): the slice's
-own wall time is stretched by the profiler. It bounds what the kernels'
-rooflines can claim, even where a later change takes a kernel off the
-path."""
+"""The whole frame (`Engine.step_and_frame`, or one frame of a record
+batch): the frame function's least time (rtbench/counts/frame.py) as a
+share of the time per frame of the run["chips"] cards it renders on (1
+where absent), idle included, over the frames of a traced run that the
+harness times by CUDA events before its profiler slice
+(run["device_frames"]): the slice's own wall time is stretched by the
+profiler. It bounds what the kernels' rooflines can claim, even where a
+later change takes a kernel off the path."""
 
 from rtbench.counts import frame
 
@@ -15,4 +16,5 @@ def read(trace, run):
         return None
     least = frame.count(run["width"], run["height"],
                         run["objects"]).seconds()
-    return 100.0 * least / (d["span_ms"] / 1e3 / d["frames"])
+    per_frame = d["span_ms"] / 1e3 / d["frames"]
+    return 100.0 * least / (run.get("chips", 1) * per_frame)

@@ -1,5 +1,7 @@
-"""Readback (app/window.py `Readback`): the device-to-host copies' device
-time per frame of the traced slice."""
+"""Readback (app/window.py `Readback`; the record job's
+`utils.images.to_host`): the device-to-host copies' device time per frame
+of the traced slice, whose `rtbench.frame` spans each hold
+run["frames_per_call"] frames (1 where absent)."""
 
 
 def read(trace, run):
@@ -7,4 +9,5 @@ def read(trace, run):
         return None
     us = sum(e.dur for e in trace.device
              if e.cat == "gpu_memcpy" and "DtoH" in e.name)
-    return us / 1e3 / trace.frames if us else None
+    frames = trace.frames * run.get("frames_per_call", 1)
+    return us / 1e3 / frames if us else None

@@ -12,7 +12,10 @@ flies the seeded user through `Engine.step_and_frame` and
 `app.window.Readback` (one frame behind, as the viewer reads frames back)
 for --seconds, in a closed loop. Once the window has closed the frames it
 handed back (a seeded sample, and the last) and the final state are held
-against the plain reference (rtbench/correct.py).
+against the plain reference (rtbench/correct.py). That is the `fly`
+driver; a traffic file that names `"driver": "record"` is played by the
+offline record job's instead (rtbench/record.py: K-frame batches, frame
+DP over the cell's cards, each batch to host memory).
 
 --trace 0 reports the cell's end-to-end metrics, --trace 1 its per-layer
 metrics, read (rtbench/metrics/) from a torch.profiler slice of the window.
@@ -296,10 +299,14 @@ def launch_counts() -> dict:
             for fn, attr in _launch_counters()}
 
 
+DRIVERS = ("fly", "record")
+
+
 class Cell:
     """A cell as BENCHMARK.json names it: its entry, configuration (render
     settings, with render_over's fields replaced: the CPU tests' small
-    sizes), traffic parameters and the limits of `correct`."""
+    sizes), traffic parameters, the driver that plays them (DRIVERS) and
+    the limits of `correct`."""
 
     def __init__(self, workload: str, root: Path = spec.ROOT,
                  render_over=None):
@@ -309,6 +316,10 @@ class Cell:
         self.conf = spec.config(self.bench, self.entry["config"], root)
         self.render = {**self.conf["render"], **(render_over or {})}
         self.params = generator.load_traffic(self.entry["traffic"])
+        self.driver = generator.driver_of(self.params)
+        if self.driver not in DRIVERS:
+            raise ValueError(f"traffic {self.entry['traffic']!r} names the "
+                             f"driver {self.driver!r}; there are {DRIVERS}")
         self.limits = spec.limits(workload)
 
 
@@ -389,6 +400,26 @@ def fly(cell: Cell, eng, seed: int, seconds: float, traced: bool,
     return result, rec
 
 
+def build(cell: Cell, device, mesh=None, setup_t0=None):
+    """The cell's system under test, warmed: the fly driver's Engine, or
+    the record driver's Recorder (mesh: record.build's override; setup_t0:
+    the host time set-up began)."""
+    if cell.driver == "record":
+        from rtbench import record
+        return record.build(cell, device, mesh, setup_t0)
+    return build_engine(cell.render, device)
+
+
+def drive(cell: Cell, sut, seed: int, seconds: float, traced: bool,
+          setup_t0: float, card=None):
+    """One window of the cell's driver on `sut` (build) → (the result line's
+    object without `correct`, the window's records)."""
+    if cell.driver == "record":
+        from rtbench import record
+        return record.drive(cell, sut, seed, seconds, traced, setup_t0, card)
+    return fly(cell, sut, seed, seconds, traced, setup_t0, card)
+
+
 def handed_back(rec) -> dict:
     """The frames of a window that are checked: the seeded sample and the
     last, {index: (H, W, 3) uint8}."""
@@ -410,15 +441,17 @@ def check(cell: Cell, rec, device):
 
 
 def run_cell(workload: str, seed: int, seconds: float, traced: bool,
-             device="cuda", root: Path = spec.ROOT, render_over=None):
+             device="cuda", root: Path = spec.ROOT, render_over=None,
+             mesh=None):
     """One run of cell `workload`, set-up to the check → the result line's
-    object. device "cpu" and render_over serve the CPU tests at small
-    sizes; the benchmark runs on "cuda"."""
+    object. device "cpu", render_over and mesh (a record cell's cards,
+    which may repeat) serve the CPU tests at small sizes and a rehearsal
+    on fewer cards; the benchmark runs on "cuda" and passes neither."""
     cell = Cell(workload, root, render_over)
     card = CardQuery() if torch.device(device).type == "cuda" else None
-    eng = build_engine(cell.render, device)
-    result, rec = fly(cell, eng, seed, seconds, traced, T_START, card)
-    del eng
+    sut = build(cell, device, mesh, T_START)
+    result, rec = drive(cell, sut, seed, seconds, traced, T_START, card)
+    del sut
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()

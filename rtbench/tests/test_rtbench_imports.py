@@ -74,3 +74,18 @@ def test_a_run_loads_no_jax():
         "                          'procedural_sky_shape': [16, 32]})\n")
     assert PORT in loaded
     assert not loaded & NEVER
+
+
+def test_a_record_run_loads_no_jax(record_root):
+    loaded = _loaded_after(
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from pathlib import Path\n"
+        "from rtbench import run\n"
+        "run.run_cell('island_720p.record8', 8, 0.3, False,\n"
+        "             device='cpu', mesh=['cpu'] * 2,\n"
+        f"             root=Path({str(record_root)!r}),\n"
+        "             render_over={'width': 32, 'height': 16,\n"
+        "                          'procedural_sky_shape': [16, 32]})\n")
+    assert PORT in loaded
+    assert not loaded & NEVER

@@ -106,3 +106,80 @@ def test_every_per_layer_metric_has_a_reader_and_unit():
         assert callable(spec.reader(m["name"]))
         if m["name"].endswith("_roofline_pct") or "mfu" in m["name"]:
             assert m["unit"] == "%"
+
+
+def test_the_record_values_default_to_one_frame(tr):
+    """frames_per_call, frames_per_launch and chips at 1, as the fly driver
+    leaves them, read what the fly driver's run reads."""
+    ones = {**RUN, "frames_per_call": 1, "frames_per_launch": 1, "chips": 1}
+    for m in spec.load_benchmark()["per_layer"]:
+        assert read(m["name"], tr, ones) == read(m["name"], tr), m["name"]
+
+
+def _batch(t0, k, device=0):
+    """One record batch of k frames from t0 (µs), each frame's work as in
+    _frame, each kernel launched once for the k frames: the host span, the
+    upload, the torch kernels, kernel A, kernel B and the batch's copy to
+    host."""
+    return [
+        _x("rtbench.frame", "user_annotation", t0, 1000 * k),
+        _x("Memcpy HtoD (Pinned -> Device)", "gpu_memcpy", t0 + 90, 5),
+        _x("void at::native::elementwise_kernel<128, 2>", "kernel",
+           t0 + 100, 300 * k),
+        _x("raytrace_kernel", "kernel", t0 + 100 + 300 * k, 200 * k),
+        _x("void at::native::index_elementwise_kernel", "kernel",
+           t0 + 100 + 500 * k, 100 * k),
+        _x("fxaa_kernel", "kernel", t0 + 100 + 600 * k, 10 * k),
+        _x("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy",
+           t0 + 100 + 610 * k, 50 * k),
+    ]
+
+
+def _parsed(tmp_path, events):
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    return trace.parse(str(path))
+
+
+def test_a_batch_of_eight_reads_per_frame(tr, tmp_path):
+    """Two batches of K = 8 whose launches each do 8 frames' work read the
+    per-frame values of the single-frame trace."""
+    batches = _parsed(tmp_path, _batch(0, 8) + _batch(8000, 8))
+    assert batches.frames == 2
+    run = {**RUN, "frames_per_call": 8, "frames_per_launch": 8,
+           "device_frames": {"frames": 8 * 400, "span_ms": 8 * 600.0,
+                             "idle_ms": 8 * 12.0}}
+    for name in ("readback_ms", "torch_ops_ms", "raytrace_roofline_pct",
+                 "fxaa_roofline_pct", "device_idle_pct", "frame_mfu"):
+        assert read(name, batches, run) == pytest.approx(read(name, tr)), name
+    # frame DP over 4 cards: a launch renders a block of 2, and the frame
+    # is charged against 4 cards' peaks
+    dp = {**run, "frames_per_launch": 2, "chips": 4}
+    assert read("raytrace_roofline_pct", batches, dp) == pytest.approx(
+        read("raytrace_roofline_pct", tr) / 4)
+    assert read("frame_mfu", batches, dp) == pytest.approx(
+        read("frame_mfu", tr) / 4)
+
+
+def test_gather_ms(tr, tmp_path):
+    """The frame-DP gather: the device-to-device and peer copies per frame;
+    none in the fly trace."""
+    assert read("gather_ms", tr) is None
+    events = _batch(0, 4) + [
+        _x("Memcpy DtoD (Device -> Device)", "gpu_memcpy", 2000, 30),
+        _x("Memcpy PtoP (Device -> Device)", "gpu_memcpy", 2100, 90),
+        _x("Memcpy PtoP (Device -> Device)", "gpu_memcpy", 2200, 80)]
+    got = read("gather_ms", _parsed(tmp_path, events),
+               {**RUN, "frames_per_call": 4})
+    assert got == pytest.approx(0.2 / 4)
+
+
+def test_busy_is_the_mean_over_the_cards(tmp_path):
+    ev = [{**_x("raytrace_kernel", "kernel", 0, 100), "args": {"device": 0}},
+          {**_x("raytrace_kernel", "kernel", 50, 100), "args": {"device": 1}},
+          {**_x("fxaa_kernel", "kernel", 300, 100), "args": {"device": 1}}]
+    t = _parsed(tmp_path, ev)
+    assert {e.device for e in t.device} == {0, 1}
+    assert t.busy_us() == pytest.approx((100 + 200) / 2)
+    assert t.window_us() == pytest.approx(400)
+    assert t.gaps() == [(150, 300)]

@@ -24,6 +24,7 @@ class Event(NamedTuple):
     cat: str
     ts: float       # microseconds
     dur: float
+    device: int = 0     # the card a device event ran on
 
 
 class Trace(NamedTuple):
@@ -42,11 +43,14 @@ class Trace(NamedTuple):
     def has_kernels(self, names) -> bool:
         return all(self.kernels(n) for n in names)
 
-    def busy_intervals(self) -> list:
-        """The union of the device events' intervals, [(start, end)] in
-        microseconds, in order."""
+    def busy_intervals(self, device=None) -> list:
+        """The union of the device events' intervals (those of card
+        `device` alone, where given), [(start, end)] in microseconds, in
+        order."""
         merged = []
-        for e in sorted(self.device, key=lambda e: e.ts):
+        events = [e for e in self.device
+                  if device is None or e.device == device]
+        for e in sorted(events, key=lambda e: e.ts):
             lo, hi = e.ts, e.ts + e.dur
             if merged and lo <= merged[-1][1]:
                 merged[-1][1] = max(merged[-1][1], hi)
@@ -62,10 +66,15 @@ class Trace(NamedTuple):
                 - min(e.ts for e in self.device))
 
     def busy_us(self) -> float:
-        return sum(hi - lo for lo, hi in self.busy_intervals())
+        """The time in which an operation ran, the mean over the cards the
+        slice's device events ran on."""
+        cards = {e.device for e in self.device}
+        return sum(hi - lo for d in cards
+                   for lo, hi in self.busy_intervals(d)) / max(len(cards), 1)
 
     def gaps(self) -> list:
-        """The device's idle gaps inside the window, [(start, end)] µs."""
+        """The device's idle gaps inside the window, in which no card ran
+        anything, [(start, end)] µs."""
         iv = self.busy_intervals()
         return [(a[1], b[0]) for a, b in zip(iv, iv[1:]) if b[0] > a[1]]
 
@@ -103,7 +112,7 @@ def parse(path: str) -> Trace:
         if e.get("ph") != "X" or "dur" not in e:
             continue
         ev = Event(e.get("name", ""), e.get("cat", ""), float(e["ts"]),
-                   float(e["dur"]))
+                   float(e["dur"]), int(e.get("args", {}).get("device", 0)))
         if ev.cat in DEVICE_CATS:
             device.append(ev)
         elif ev.cat == HOST_SPAN and ev.name.startswith("rtbench."):
