@@ -23,7 +23,8 @@ same device code. `step_and_frame`, `step_and_frame_batch`
 `_ff_scan`; a 256-step graph costs a cold resume more to capture than it
 saves). The first call of each kind and K runs eagerly (the warm-up,
 which also builds and loads the kernels), the second captures the same
-code and every call from then on replays it. The graphs read the state
+code and every call from then on replays it, each graph captured on a
+stream of the card it runs on. The graphs read the state
 from buffers of their own and write the new state back into them (a
 render-only graph writes nothing); `Engine.state` hands out a snapshot
 (a copy made when it is read), and each frame returned is a copy of the
@@ -35,7 +36,8 @@ against.
 
 While a torch.profiler session records (utils/profiling.py), each call is
 a host span `engine.call` holding its upload, replay or eager run and
-capture, all carrying the call's number; and a single-device frame
+capture, all carrying the call's number (and a frame-DP call's gather onto
+the Engine's device is the span `engine.gather`); and a single-device frame
 call on the static sky stack (`step_and_frame`, `step_and_frame_preview`,
 `frame()`) replays a second graph of the same step with four stage marks
 in it (begin, step, packs, sky: empty kernels whose times split the
@@ -206,6 +208,24 @@ class _Replicas:
         self.graphs: dict = {}
         self.traced: dict = {}
         self.warm: set = set()
+
+
+# one capture stream per card, made at its first capture
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    """The stream every graph captured on card `device` is captured on,
+    made once per card on that card. torch.cuda.graph's own default is one
+    stream made on the card current at the process's first capture, and a
+    capture on a stream of another card than the one its work runs on
+    fails at the first allocation."""
+    device = as_device(device)
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        with torch.cuda.device(device):
+            stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
 
 
 def _state_copy(state: sim.FrameState, device) -> sim.FrameState:
@@ -637,8 +657,8 @@ class Engine:
         """A CUDA graph of step(entry, live, actions) on `device` from the
         replica `live` on a static (k, 16) action buffer (none where k is
         None: a render-only step), which writes the new state back into
-        the replica; in a memory pool of its own. Raises where the capture
-        fails."""
+        the replica; in a memory pool of its own, on the capture stream of
+        `device` (_capture_stream). Raises where the capture fails."""
         with torch.cuda.device(device):
             actions = None if k is None else torch.zeros(
                 (k, 16), dtype=torch.float32, device=device)
@@ -651,7 +671,8 @@ class Engine:
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph,
+                                      stream=_capture_stream(device)):
                     new, out = step(entry, live, actions)
                     _write_state(live, new)
             finally:
@@ -682,7 +703,8 @@ class Engine:
         While a torch.profiler session records, the call numbers itself
         and runs again inside the host span `engine.call`, given `span`,
         its span function (utils/profiling.py): its upload, replay or
-        eager run and capture are spans then, all carrying its number, and
+        eager run and capture are spans then, all carrying its number (a
+        replay also the index of its entry's card, `device`), and
         where `marks` (a step that places the stage marks) a replay is of
         the graph's marked variant, captured at the first such call in a
         pool of its own. Otherwise the call costs a flag check more than
@@ -720,7 +742,7 @@ class Engine:
                         if vecs is not None:
                             with span("engine.upload"):
                                 g.actions.copy_(vecs, non_blocking=True)
-                        with span("engine.replay"):
+                        with span("engine.replay", device=d.index):
                             g.graph.replay()
                 for (fn, attr), n in zip(_launch_counters(), g.counts):
                     setattr(fn, attr, getattr(fn, attr) + n)
@@ -896,9 +918,11 @@ class Engine:
             ("script", len(vecs), n_frames, n_rows, interleave), vecs, step)
         imgs = torch.empty((len(vecs), c.height, c.width, 3),
                            dtype=torch.uint8, device=self.device)
-        for e, out in enumerate(outs):
-            g = e // n_rows
-            place_bands(imgs[g * per:(g + 1) * per], out, e % n_rows, n_rows)
+        with profiling.span_function(self._calls)("engine.gather"):
+            for e, out in enumerate(outs):
+                g = e // n_rows
+                place_bands(imgs[g * per:(g + 1) * per], out, e % n_rows,
+                            n_rows)
         return imgs
 
     def frame_np(self) -> np.ndarray:

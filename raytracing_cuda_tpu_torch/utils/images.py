@@ -13,15 +13,58 @@ import struct
 import zlib
 
 import numpy as np
+import torch
+
+from raytracing_cuda_tpu_torch.utils import profiling
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def to_host(image) -> np.ndarray:
-    """Framebuffer (a tensor on any device, or an array) → host array."""
-    if hasattr(image, "detach"):
-        return image.detach().cpu().numpy()
-    return np.asarray(image)
+    """Framebuffer (a tensor on any device, or an array) → a host array the
+    caller owns: it keeps its values for as long as it is held, whatever
+    later calls do.
+
+    A CUDA tensor is copied into page-locked memory from torch's caching
+    host allocator, then waited for on its card's current stream. Once the
+    caller lets an array go, its block goes back to the allocator for a
+    later call. So a caller that holds one batch while the next is copied,
+    as `record` does, reuses two blocks and allocates no host memory once
+    warm. `.cpu()` would copy into fresh pageable memory every time. Other
+    tensors and arrays come back as `.cpu().numpy()` and `np.asarray` give
+    them.
+
+    While a profiler records, the call is the span `images.to_host` with
+    the parts `images.to_host.copy` and `images.to_host.wait`. The wait
+    carries `host_alloc_bytes`: the host bytes this call newly allocated,
+    0 where it reused a block. The calls and those bytes are also counted
+    (profiling.count: `images.to_host.calls`,
+    `images.to_host.host_alloc_bytes`)."""
+    if not hasattr(image, "detach"):
+        return np.asarray(image)
+    src = image.detach()
+    if src.device.type != "cuda":
+        return src.cpu().numpy()
+    span = profiling.span_function()
+    traced = span is not profiling.off
+    with span("images.to_host"):
+        before = _host_bytes() if traced else 0
+        with span("images.to_host.copy"):
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+        new = _host_bytes() - before if traced else 0
+        with span("images.to_host.wait", host_alloc_bytes=new):
+            torch.cuda.current_stream(src.device).synchronize()
+    if traced:
+        profiling.count("images.to_host.calls", 1)
+        profiling.count("images.to_host.host_alloc_bytes", new)
+    return host.numpy()
+
+
+def _host_bytes() -> int:
+    """The page-locked bytes torch's caching host allocator has allocated
+    from CUDA in this process, blocks reused or not."""
+    return int(torch.cuda.host_memory_stats()["allocated_bytes.allocated"])
 
 
 def box_downsample(image, n: int) -> np.ndarray:

@@ -10,13 +10,19 @@ records (`recording()`). Off, an Engine call costs one flag check, a
 readback one flag check and two shared no-op contexts, and the device
 nothing: no graph replayed then holds a mark.
 
-- `span_function(call)(name)` is, while the profiler records, a host
-  range of the trace (the Engine's calls and their upload, replay, eager
-  run and capture; the readback's copy and wait), else NOOP. The ranges
-  lie on the clock the device's events share, so every idle
-  gap of the device can be put down to the host's work at that moment.
-  The spans of one Engine call carry its number (`call`), shown in the
+- `span_function(call)(name, **values)` is, while the profiler records, a
+  host range of the trace (the Engine's calls and their upload, replay,
+  eager run and capture, and a frame-DP call's gather; the readback's copy
+  and wait; `utils/images.py` `to_host` and its copy and wait), else
+  NOOP. The ranges lie on the clock the device's events share, so every
+  idle gap of the device can be put down to the host's work at that
+  moment. The spans of one Engine call carry its number (`call`), and
+  a span may carry more integers (`values`: the card a replay runs
+  on, the host bytes a copy to host allocated), shown in the
   trace where the profiler records shapes, as `trace` does.
+- `count(name, n)` adds n to the program counter `name` in COUNTERS, the
+  totals over the calls made while a profiler recorded (`to_host`'s
+  calls and the host bytes they allocated), which the benchmark reads.
 - `mark(stage)` launches one of four empty kernels (csrc/marks.cu) at a
   stage boundary of a frame: `begin` before the state step, `step` after
   it, `packs` after the packs, `sky` after the sky lookup and quantize. It
@@ -39,6 +45,8 @@ from raytracing_cuda_tpu_torch import _build
 TRACE_FILE = "trace.json"
 STAGES = ("begin", "step", "packs", "sky")
 
+# the program counters: totals over the traced calls (`count`)
+COUNTERS: dict = {}
 # the marks' library while marks are being captured, else None
 _MARKING: contextvars.ContextVar = contextvars.ContextVar("stage_marks",
                                                           default=None)
@@ -67,26 +75,33 @@ def recording() -> bool:
     return torch.autograd._profiler_enabled()
 
 
-def off(name: str):
+def off(name: str, **values):
     """The span function of an untraced call: name → NOOP, one shared
     context that does nothing."""
     return NOOP
 
 
 def spans(call: int | None = None):
-    """The span function of one traced call: name → a host range of the
-    trace named `name`, carrying `call` (its args' "call")."""
+    """The span function of one traced call: (name, **values) → a host
+    range of the trace named `name`, carrying `call` (its args' "call")
+    and the integers `values` under their names."""
     # record_function would drop its args string from the exported trace;
     # this range keeps keyword values there (under record_shapes)
     from torch._C._profiler import _RecordFunctionFast
 
     kw = {} if call is None else {"call": call}
-    return lambda name: _RecordFunctionFast(name, [], kw)
+    return lambda name, **values: _RecordFunctionFast(name, [],
+                                                      {**kw, **values})
 
 
 def span_function(call: int | None = None):
     """spans(call) while the profiler records, else off: one flag check."""
     return spans(call) if recording() else off
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the program counter `name` (COUNTERS)."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + n
 
 
 def _marks_library():
