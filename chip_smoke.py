@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build both kernels (csrc/raytrace.cu, csrc/fxaa.cu), kernel A's
-     diagnostic arms (csrc/raytrace_arms.cu) and the packs kernel
-     (csrc/packs.cu) with nvcc, in parallel; ptxas must report no spills,
-     and each kernel's registers are printed;
+     diagnostic arms (csrc/raytrace_arms.cu), the packs kernel
+     (csrc/packs.cu) and the sky kernel (csrc/sky.cu) with nvcc, in
+     parallel; ptxas must report no spills, and each kernel's registers
+     are printed;
   3. each kernel against its plain PyTorch version on the card at
      1280x720, bit for bit, for the four golden states, the worst pose, the
      seven degenerate states (EXTREME) and the classic scene, with times,
@@ -17,16 +18,20 @@ Phases (any failure exits non-zero):
      the torch packs on the card, and each held against the same state's
      packs built on the CPU: equal but for the trig-inherited entries, and
      the rays kernel A renders apart between the two counted); the packs
-     kernel's and the torch packs' device times by CUDA graph replay;
+     kernel's and the torch packs' device times by CUDA graph replay; the
+     sky kernel (csrc/sky.cu) on kernel A's planes of every pose against
+     its plain version (the torch sky lookup + quantize), and both their
+     device times by CUDA graph replay beside the kernel's byte bound;
      kernel A at a size whose warp tiles hang over the frame's edges
      (ODD_SIZE), one frame and 3 frames per launch; kernel A's counting
      launch and its lane-efficiency line;
   4. the slice: Engine(device="cuda") renders the four golden states
      against tests/golden/tpu/*.png, then runs the idle animated loop;
-     the three kernels' launch counters (A, B, the packs) must have
-     moved in this phase;
-  5. the batch path: both kernels' K-frame forms against their plain
-     versions and single-frame launches, step_and_frame_batch against
+     the four kernels' launch counters (A, B, the packs, the sky) must
+     have moved in this phase;
+  5. the batch path: kernel A's, kernel B's and the sky kernel's K-frame
+     forms against their plain versions and single-frame launches (the
+     sky kernel's K = 8 times by graph replay), step_and_frame_batch against
      step_and_frame, Engine.run(batch=8) against Engine.run; the batch
      forms' counters must have moved in run(batch=8);
   6. the CLI (render, record, record --resume, render --state, bench)
@@ -82,10 +87,10 @@ Phases (any failure exits non-zero):
      goldens in tests/golden/tpu/1920x1080/ under the golden contract, and
      at 640x480 (mountains, FXAA off: bench_torch.py's configuration 1)
      against the CPU Engine's frame under the same contract; at each size
-     both kernels against their plain versions bit for bit (at 1080p for
-     every golden state), then the device times of kernel A and kernel B
-     (CUDA graph replay) and of the sky stage between them (CUDA events);
-     both kernels bit for bit at the shapes phase 11's scripts hand them:
+     kernel A, the sky kernel and kernel B against their plain versions
+     bit for bit (at 1080p for every golden state), then their device
+     times (CUDA graph replay) and the sky kernel's bound; the three
+     kernels bit for bit at the shapes phase 11's scripts hand them:
      entry()'s 144x256 frame, dryrun_multichip(8)'s 128x128 frames whole
      and in bands of 16 and 8 rows, one and two frames per launch;
  11. the root scripts, in-process on the card: bench_torch.main at 1280x720
@@ -370,26 +375,62 @@ def rays_apart(planes_a, planes_b) -> int:
     return int((a != b).any(0).sum())
 
 
+def sky_inputs(states, dev) -> tuple:
+    """The K states' clocks (K,) and sky weights (K, 4) on dev, as
+    render/sky.py sky_quantize reads them."""
+    return (torch.stack([st.day_time for st in states]).to(dev),
+            torch.stack([st.sky_vars for st in states]).to(dev))
+
+
+def sky_bases(planes, states, sky_pack, label: str) -> torch.Tensor:
+    """K frames before FXAA from kernel A's planes ((K, H, W) each) and
+    their K states: sky_quantize, the main path's launch, required equal
+    bit for bit to sky_quantize_torch on the same inputs."""
+    from raytracing_cuda_tpu_torch.render.sky import (sky_quantize,
+                                                      sky_quantize_torch)
+
+    planes = [p.contiguous() for p in planes]
+    args = (sky_pack, *SKY_SHAPE, *sky_inputs(states, planes[0].device))
+    out = sky_quantize(planes, *args)
+    require(torch.equal(out, sky_quantize_torch(planes, *args)),
+            f"{label}: the sky kernel equals its plain version bit for bit")
+    return out
+
+
+def sky_bound(planes):
+    """sky_quantize's bound on kernel A's planes ((K, H, W) each): r, g, b
+    and mw read at every pixel, the direction and two int32 texels where
+    the sky shows (mw != 0), 3 bytes written. Its arithmetic, a few dozen
+    operations a sky pixel, is far below those bytes at the card's peaks
+    and is not counted."""
+    n, n_sky = planes[0].numel(), int((planes[3] != 0).sum())
+    return bound(n * (4 * 4 + 3) + n_sky * (3 * 4 + 2 * 4), 0)
+
+
 def reset_counts():
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
 
     from raytracing_cuda_tpu_torch.render.packs import pack_frame
+    from raytracing_cuda_tpu_torch.render.sky import sky_quantize
 
     for fn in (cuda_rt.raytrace_planes, cuda_rt.raytrace_planes_batch,
-               fx.fxaa, fx.fxaa_batch, fx.fxaa_ext, pack_frame):
+               fx.fxaa, fx.fxaa_batch, fx.fxaa_ext, pack_frame, sky_quantize):
         fn.launches = 0
     cuda_rt.raytrace_planes.arm_launches = 0
     cuda_rt.raytrace_planes_batch.arm_launches = 0
     cuda_rt.raytrace_planes_batch.frames = 0
     fx.fxaa_batch.frames = 0
     fx.fxaa_ext.frames = 0
+    sky_quantize.frames = 0
 
 
 def read_counts() -> dict:
     from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa as fx
     from raytracing_cuda_tpu_torch.render.packs import pack_frame
+    from raytracing_cuda_tpu_torch.render.sky import sky_quantize
 
     return {"packs": pack_frame.launches,
+            "sky": sky_quantize.launches, "sky_frames": sky_quantize.frames,
             "raytrace_megakernel": cuda_rt.raytrace_planes.launches,
             "raytrace_megakernel_k8": cuda_rt.raytrace_planes_batch.launches,
             "raytrace_megakernel_k8_frames":
@@ -735,12 +776,13 @@ def main() -> int:
     from raytracing_cuda_tpu_torch.render.packs import pack_base, pack_frame
     from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
                                                            frame_packs_torch)
-    from raytracing_cuda_tpu_torch.render.reference import quantize
+    from raytracing_cuda_tpu_torch.render.sky import (sky_quantize,
+                                                      sky_quantize_torch)
     from raytracing_cuda_tpu_torch.scene.builders import (
         ISLAND_SPH_CLUSTERS, ISLAND_TRI_CLUSTERS, ISLAND_TRI_SUBS,
         build_scene)
-    from raytracing_cuda_tpu_torch.scene.textures import (
-        pack_sky_all, procedural_skies, sample_sky_packed_pair)
+    from raytracing_cuda_tpu_torch.scene.textures import (pack_sky_all,
+                                                          procedural_skies)
     from raytracing_cuda_tpu_torch.sim import state as sim
     from raytracing_cuda_tpu_torch.sim.actions import Action
     from raytracing_cuda_tpu_torch.utils.config import RenderConfig
@@ -761,11 +803,11 @@ def main() -> int:
 
     print(_build.nvcc_version(), flush=True)
     t0 = time.perf_counter()
-    libs = ("raytrace", "raytrace_arms", "fxaa", "packs")
+    libs = ("raytrace", "raytrace_arms", "fxaa", "packs", "sky")
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(_build.load, libs))
-    print(f"built both kernels, kernel A's arms and the packs kernel in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"built both kernels, kernel A's arms, the packs and the sky "
+          f"kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in libs:
         log = _build.BUILD_LOG[name]
         print(f"built {name}: nvcc {log['seconds']:.2f} s\n{log['ptxas']}",
@@ -834,24 +876,21 @@ def main() -> int:
                 f"{name}: kernel A vs plain at 720p: planes max|diff| {err}, "
                 f"hit/miss mismatches {mism}")
 
-        def base_of(planes, st=st):
-            r, g, b, mw, mdx, mdy, mdz = planes
-            sky = sample_sky_packed_pair(
-                sky_pack, *SKY_SHAPE, torch.stack([mdx, mdy, mdz], -1),
-                st.day_time / 24.0, st.sky_vars)
-            return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sky)
+        def base_of(planes, label, st=st):
+            return sky_bases([p[None] for p in planes], [st], sky_pack,
+                             f"{name} at 720p, {label}")[0]
 
-        bk = base_of(kern)
+        bk = base_of(kern, "the kernel's packs")
         # rays whose planes differ, and pixels of the frame before FXAA
         apart[name] = (rays_apart(kern, on_cpu_packs), int(
-            (base_of(on_cpu_packs) != bk).any(-1).sum()))
+            (base_of(on_cpu_packs, "the CPU's packs") != bk).any(-1).sum()))
         if name in CASES:
             golden_bases.append(bk)
         fk, fp = fx.fxaa(bk), fx.fxaa_torch(bk)
         d = int((fk.int() - fp.int()).abs().max())
         b_err = max(b_err, d)
         require(d == 0, f"{name}: kernel B vs plain at 720p: max|diff| {d}")
-        inputs[name] = (coef, params, nt, ns, cu, bk, kern, base_of)
+        inputs[name] = (coef, params, nt, ns, cu, bk, kern, st)
         if work is not None:
             works[name] = work
 
@@ -904,7 +943,8 @@ def main() -> int:
           f"packs (kernel A's rays apart, pixels apart before FXAA): "
           f"{apart} of {H * W} [{card}]", flush=True)
     report["device_packs"] = {"trig_ulp": trig_ulp, "rays_apart": apart}
-    coef, params, nt, ns, cull, bk, kern, base_of = inputs["island_morning"]
+    coef, params, nt, ns, cull, bk, kern, st_morning = inputs[
+        "island_morning"]
     ms_a_pose = {name: cuda_ms(lambda i=inputs[name]: cuda_rt.raytrace_planes(
         i[0], i[1], H, W, i[2], i[3], cull=i[4]), 20)
         for name in ("island_morning", "mountains_day", "worst_pose",
@@ -966,11 +1006,22 @@ def main() -> int:
         frame_packs(scene, sim.animate(st0, Action.idle(), 1 / 60), H, W,
                    None, *clusters)
     host_ms = (time.perf_counter() - t0) * 1e3 / 50
-    ms_sky = cuda_ms(lambda: base_of(kern), 50)
+    # the sky lookup + quantize: one launch of the sky kernel against its
+    # plain version (the torch composition it replaces), by CUDA graph
+    # replay on kernel A's planes, as the main path hands them over
+    sky_planes = [p[None] for p in kern]
+    sky_args = (sky_pack, *SKY_SHAPE, *sky_inputs([st_morning], dev))
+    ms_sky = graph_device_ms(lambda: sky_quantize(sky_planes, *sky_args), 50)
+    ms_sky_plain = graph_device_ms(
+        lambda: sky_quantize_torch(sky_planes, *sky_args), 10)
+    bound_sky = sky_bound(sky_planes)
+    print(f"sky kernel 720p island_morning: {ms_sky:.4f} ms, plain version "
+          f"{ms_sky_plain:.4f} ms (CUDA graph replay); bound "
+          f"{bound_sky[0]:.6f} ms ({bound_sky[1]}) [{card}]", flush=True)
     print(f"breakdown 720p island_morning: host step+packs {host_ms:.4f} ms "
-          f"(host clock), sky+quantize {ms_sky:.4f} ms, kernel A "
-          f"{ms_a:.4f} ms, kernel B {ms_b:.4f} ms (CUDA events) [{card}]",
-          flush=True)
+          f"(host clock), sky+quantize {ms_sky:.4f} ms (graph replay), "
+          f"kernel A {ms_a:.4f} ms, kernel B {ms_b:.4f} ms (CUDA events) "
+          f"[{card}]", flush=True)
     report["breakdown_ms"] = {"host_step_packs": host_ms,
                               "sky_quantize": ms_sky, "raytrace": ms_a,
                               "fxaa": ms_b}
@@ -983,6 +1034,7 @@ def main() -> int:
     cuda_rt.raytrace_planes.launches = 0
     fx.fxaa.launches = 0
     pack_frame.launches = 0
+    sky_quantize.launches = 0
     worst = 0.0
     for name, kw in CASES.items():
         eng.set_state(make_state(**kw))
@@ -999,7 +1051,8 @@ def main() -> int:
     eng.set_state(make_state(6.0))
     stats = eng.run(args.frames)
     launches = {"raytrace": cuda_rt.raytrace_planes.launches,
-                "fxaa": fx.fxaa.launches, "packs": pack_frame.launches}
+                "fxaa": fx.fxaa.launches, "packs": pack_frame.launches,
+                "sky": sky_quantize.launches}
     ms = sorted(stats.frame_ms)
     print(f"slice: Engine.run({args.frames}) idle animated loop 1280x720 "
           f"island: {stats.fps:.2f} fps, frame ms median "
@@ -1007,28 +1060,17 @@ def main() -> int:
           f"(CUDA events) [{card}]", flush=True)
     print(f"launch counts in the slice phase: {launches}", flush=True)
     require(all(v > 0 for v in launches.values()),
-            "the three kernels launched by the main path")
+            "the four kernels launched by the main path")
     report.update(slice=stats.as_dict(), launches=launches,
                   golden_rmse_max=worst)
 
     # --- 5. the batch path ---
     phase(5)
-    from raytracing_cuda_tpu_torch.scene.textures import (
-        sample_sky_packed_pair_batch)
-
     def stacked_packs(states):
         packs = [frame_packs(scene, st, H, W, None, *clusters)
                  for st in states]
         return (torch.stack([p[0] for p in packs]).to(dev),
                 torch.stack([p[1] for p in packs]).to(dev))
-
-    def bases_of(planes, states):
-        r, g, b, mw, mdx, mdy, mdz = planes
-        sky = sample_sky_packed_pair_batch(
-            sky_pack, *SKY_SHAPE, torch.stack([mdx, mdy, mdz], -1),
-            [st.day_time / 24.0 for st in states],
-            [st.sky_vars for st in states])
-        return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sky)
 
     golden_states = [make_state(**kw) for kw in CASES.values()]
     coefs4, params4 = stacked_packs(golden_states)
@@ -1066,7 +1108,20 @@ def main() -> int:
           f"{ms_a8 / BATCH:.4f} ms per frame vs K=1 {ms_a:.4f} ms per frame "
           f"(plain K=8 {ms_a8_plain:.4f} ms) [{card}]", flush=True)
 
-    base8 = bases_of(k8, states8)
+    base8 = sky_bases(k8, states8, sky_pack, "K=8 at 720p")
+    require(all(torch.equal(base8[k], sky_bases(
+        [p[k:k + 1] for p in k8], [st], sky_pack, f"frame {k} of K=8")[0])
+        for k, st in enumerate(states8)),
+        "the sky kernel K=8 equals per-frame launches bit for bit")
+    sky8_args = (sky_pack, *SKY_SHAPE, *sky_inputs(states8, dev))
+    ms_sky8 = graph_device_ms(lambda: sky_quantize(k8, *sky8_args), 50)
+    ms_sky8_plain = graph_device_ms(
+        lambda: sky_quantize_torch(k8, *sky8_args), 5)
+    bound_sky8 = sky_bound(k8)
+    print(f"sky kernel 720p: K=8 {ms_sky8:.4f} ms per launch = "
+          f"{ms_sky8 / BATCH:.4f} ms per frame vs K=1 {ms_sky:.4f} ms "
+          f"(plain K=8 {ms_sky8_plain:.4f} ms; CUDA graph replay); bound "
+          f"{bound_sky8[0]:.6f} ms ({bound_sky8[1]}) [{card}]", flush=True)
     bound_b8 = fxaa_bound(framed(base8), halo=False)
     fb8 = fx.fxaa_batch(base8)
     fb8_plain = fx.fxaa_batch_torch(base8)
@@ -1096,7 +1151,8 @@ def main() -> int:
             f"step_and_frame_batch of {BATCH} equals {BATCH} step_and_frame "
             f"calls (frames and end state)")
     require(counts["raytrace_megakernel_k8"] == 1 and counts["fxaa_k8"] == 1
-            and counts["raytrace_megakernel_k8_frames"] == BATCH,
+            and counts["raytrace_megakernel_k8_frames"] == BATCH
+            and counts["sky"] == 1 and counts["sky_frames"] == BATCH,
             f"step_and_frame_batch launched each batch kernel once: {counts}")
 
     fps = {}
@@ -1118,10 +1174,13 @@ def main() -> int:
     print(f"launch counts in Engine.run(batch={BATCH}): {batch_counts}",
           flush=True)
     require(batch_counts["raytrace_megakernel_k8"] > 0
-            and batch_counts["fxaa_k8"] > 0,
-            "both batch kernel forms launched by run(batch=8)")
+            and batch_counts["fxaa_k8"] > 0
+            and batch_counts["sky"] > 0,
+            "the batch kernel forms (A, B, the sky) launched by "
+            "run(batch=8)")
     report.update(batch={"fps": fps, "counts": batch_counts,
-                         "kernel_a_k8_ms": ms_a8, "fxaa_k8_ms": ms_b8})
+                         "kernel_a_k8_ms": ms_a8, "fxaa_k8_ms": ms_b8,
+                         "sky_k8_ms": ms_sky8})
 
     # --- 6. the CLI, in-process ---
     phase(6)
@@ -2223,15 +2282,6 @@ def main() -> int:
     # --- 10. other sizes: 1920x1080 against its goldens, 640x480 ---
     phase(10)
 
-    def base_from(planes, st):
-        """Kernel A's planes of state st → the (..., 3) uint8 frame before
-        FXAA (the sky lookup and quantize, torch ops)."""
-        r, g, b, mw, mdx, mdy, mdz = planes
-        sk = sample_sky_packed_pair(
-            eng.sky_pack, *SKY_SHAPE, torch.stack([mdx, mdy, mdz], -1),
-            st.day_time / 24.0, st.sky_vars)
-        return quantize(torch.stack([r, g, b], -1) + mw[..., None] * sk)
-
     def held_frame(label, h, w, st):
         """Both kernels' full-frame wrappers against their plain versions,
         bit for bit, on the h x w frame of state st → (kernel A's launch,
@@ -2248,7 +2298,8 @@ def main() -> int:
         planes = run_a()
         plain = cuda_rt.raytrace_planes_torch(coef_d, params_d, h, w, nt_,
                                               ns_)
-        base = base_from(planes, st)
+        base = sky_bases([p[None] for p in planes], [st], eng.sky_pack,
+                         f"{label} at {w}x{h}")[0]
         a_ok = all(torch.equal(a, b) for a, b in zip(planes, plain))
         b_ok = torch.equal(fx.fxaa(base), fx.fxaa_torch(base))
         require(a_ok and b_ok, f"{label}: kernel A and kernel B at {w}x{h} "
@@ -2272,8 +2323,8 @@ def main() -> int:
         a_ok = all(torch.equal(a, b) for a, b in zip(
             full, cuda_rt.raytrace_planes_batch_torch(coefs, params_, h, w,
                                                       nt_, ns_)))
-        bases = torch.stack([base_from([p[k] for p in full], st)
-                             for k, st in enumerate(states)])
+        bases = sky_bases(full, states, eng.sky_pack,
+                          f"{label}: K={len(states)} frames of {w}x{h}")
         whole = fx.fxaa_batch(bases)
         b_ok = torch.equal(whole, fx.fxaa_batch_torch(bases))
         sub = h // n
@@ -2298,12 +2349,15 @@ def main() -> int:
 
     def stage_ms(h, w, st):
         """held_frame on the h x w frame of state st, then the device ms of
-        kernel A (CUDA graph replay), of the sky lookup + quantize between
-        the kernels (CUDA events: torch ops, which read the state's host
-        scalars) and of kernel B (graph replay)."""
+        kernel A, of the sky kernel between the kernels and of kernel B,
+        each by CUDA graph replay, and the sky kernel's bound."""
         run_a, planes, base = held_frame(f"{w}x{h}", h, w, st)
+        sky_planes = [p[None] for p in planes]
+        sky_args = (eng.sky_pack, *SKY_SHAPE, *sky_inputs([st], dev))
         return {"raytrace": graph_device_ms(run_a, 20),
-                "sky_quantize": cuda_ms(lambda: base_from(planes, st), 50),
+                "sky_quantize": graph_device_ms(
+                    lambda: sky_quantize(sky_planes, *sky_args), 50),
+                "sky_bound": sky_bound(sky_planes)[0],
                 "fxaa": graph_device_ms(lambda: fx.fxaa(base), 50)}
 
     eng_1080 = eng.resized(1920, 1080)
@@ -2321,8 +2375,10 @@ def main() -> int:
                 f"{name}: 1920x1080 Engine frame vs golden rmse {rm:.5f} "
                 f"off>2 {off:.4%}")
     counts = read_counts()
-    require(counts["raytrace_megakernel"] == 4 and counts["fxaa"] == 4,
-            f"the 1080p frames launched kernel A and kernel B 4 times each "
+    require(counts["raytrace_megakernel"] == 4 and counts["fxaa"] == 4
+            and counts["sky"] == 4,
+            f"the 1080p frames launched kernel A, the sky kernel and kernel "
+            f"B 4 times each "
             f"(the state with FXAA off keeps its base frame by a select on "
             f"the card): {counts}")
     for name, kw in CASES.items():
@@ -2335,9 +2391,10 @@ def main() -> int:
     ms = sorted(st1080.frame_ms)
     print(f"1920x1080 island_morning device ms: kernel A "
           f"{sizes['1920x1080']['raytrace']:.4f} (CUDA graph replay), sky + "
-          f"quantize {sizes['1920x1080']['sky_quantize']:.4f} (CUDA "
-          f"events), kernel B {sizes['1920x1080']['fxaa']:.4f} (graph "
-          f"replay); Engine.run(60) {st1080.fps:.2f} fps, frame ms median "
+          f"quantize {sizes['1920x1080']['sky_quantize']:.4f} (graph "
+          f"replay; bound {sizes['1920x1080']['sky_bound']:.6f}), kernel B "
+          f"{sizes['1920x1080']['fxaa']:.4f} (graph replay); Engine.run(60) "
+          f"{st1080.fps:.2f} fps, frame ms median "
           f"{ms[len(ms) // 2]:.4f} [{card}]", flush=True)
     del eng_1080
 
@@ -2347,9 +2404,10 @@ def main() -> int:
     reset_counts()
     img = eng_480.frame_np()
     counts = read_counts()
-    require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 1,
+    require(counts["raytrace_megakernel"] == 1 and counts["fxaa"] == 1
+            and counts["sky"] == 1,
             f"the 640x480 frame (FXAA off, selected on the card) launched "
-            f"kernel A and kernel B once each: {counts}")
+            f"kernel A, the sky kernel and kernel B once each: {counts}")
     eng_cpu = Engine(RenderConfig(width=640, height=480,
                                   procedural_sky_shape=SKY_SHAPE),
                      device="cpu")
@@ -2364,7 +2422,7 @@ def main() -> int:
     sizes["640x480"] = stage_ms(480, 640, st480)
     print(f"640x480 mountains (day 14, camera preset 1) device ms: kernel A "
           f"{sizes['640x480']['raytrace']:.4f} (CUDA graph replay), sky + "
-          f"quantize {sizes['640x480']['sky_quantize']:.4f} (CUDA events), "
+          f"quantize {sizes['640x480']['sky_quantize']:.4f} (graph replay), "
           f"kernel B {sizes['640x480']['fxaa']:.4f} (graph replay; the "
           f"state has FXAA off, so its frames keep the base) [{card}]",
           flush=True)
@@ -2979,6 +3037,18 @@ def main() -> int:
     # --- 14. report ---
     phase(14)
     kernels = [
+        {"name": "sky_quantize", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/sky.cu",
+         "replaces": None, "launches": launches["sky"],
+         "max_abs_err": 0.0, "ms": ms_sky, "plain_ms": ms_sky_plain,
+         "bound_ms": bound_sky[0], "bound_by": bound_sky[1],
+         "library_ms": None},
+        {"name": "sky_quantize_k8", "route": "cuda",
+         "source": "raytracing_cuda_tpu_torch/csrc/sky.cu",
+         "replaces": None, "launches": batch_counts["sky"],
+         "max_abs_err": 0.0, "ms": ms_sky8, "plain_ms": ms_sky8_plain,
+         "bound_ms": bound_sky8[0], "bound_by": bound_sky8[1],
+         "library_ms": None},
         {"name": "packs", "route": "cuda",
          "source": "raytracing_cuda_tpu_torch/csrc/packs.cu",
          "replaces": None, "launches": launches["packs"],

@@ -124,6 +124,7 @@ from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
                                                        render_frame,
                                                        stack_packs,
                                                        step_states)
+from raytracing_cuda_tpu_torch.render.sky import sky_quantize
 from raytracing_cuda_tpu_torch.scene.builders import (CLASSIC_CAMERA,
                                                       SPH_CLUSTERS,
                                                       TRI_CLUSTERS, TRI_SUBS,
@@ -174,7 +175,8 @@ def _launch_counters() -> list:
             (raytrace_planes_batch, "launches"),
             (raytrace_planes_batch, "frames"), (fxaa, "launches"),
             (fxaa_batch, "launches"), (fxaa_batch, "frames"),
-            (fxaa_ext, "launches"), (fxaa_ext, "frames")]
+            (fxaa_ext, "launches"), (fxaa_ext, "frames"),
+            (sky_quantize, "launches"), (sky_quantize, "frames")]
 
 
 class _Graph(NamedTuple):

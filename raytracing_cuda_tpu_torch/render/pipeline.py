@@ -7,8 +7,9 @@ One frame is, on one device as in the JAX package's jitted step: derive the
 frame's scene and rays, pack them into the coefficient table and params
 vector (`frame_packs`: on a card one launch of csrc/packs.cu over the
 scene's pack base, render/packs.py), then the megakernel (7 planes), the
-flat pair sky lookup from the static panorama stack,
-`quantize(rgb + mw·sky)` (reference.py:139-142), and FXAA selected by the
+flat pair sky lookup from the static panorama stack and
+`quantize(rgb + mw·sky)` (reference.py:139-142; on a card one launch of
+csrc/sky.cu, render/sky.py), and FXAA selected by the
 state's toggle. Every step runs on the device of the scene and state;
 nothing is read back to the host, so a CUDA graph can replay it
 (app/loop.py).
@@ -41,9 +42,9 @@ from raytracing_cuda_tpu_torch.render.packs import (layout_key, pack_base,
                                                     pack_frame)
 from raytracing_cuda_tpu_torch.render.reference import (quantize,
                                                         render_base_image)
-from raytracing_cuda_tpu_torch.scene.textures import (
-    blend_sky, pack_sky, sample_sky_packed, sample_sky_packed_pair,
-    sample_sky_packed_pair_batch)
+from raytracing_cuda_tpu_torch.render.sky import sky_quantize
+from raytracing_cuda_tpu_torch.scene.textures import (blend_sky, pack_sky,
+                                                      sample_sky_packed)
 from raytracing_cuda_tpu_torch.sim.state import (FrameState, animate_packed,
                                                  camera_rays, derive_frame,
                                                  state_to)
@@ -186,18 +187,17 @@ def _base(coef, params, n_tri_rows: int, n_sph_rows: int, sky_pack,
           width: int, cull=None) -> torch.Tensor:
     """Device half before FXAA: megakernel + deferred sky + quantize →
     (height, width, 3) uint8 on the device of `coef`. cull: frame_packs'
-    cull table on that device (read by the CUDA kernel only). The state's
-    clock and sky weights are read on that device (day_frac = day_time /
-    24 as a true division). The `sky` stage mark follows the quantize
-    (utils/profiling.py `mark`: launched only in a marked capture)."""
-    r, g, b, mw, mdx, mdy, mdz = raytrace_planes(coef, params, height, width,
-                                                 n_tri_rows, n_sph_rows,
-                                                 cull=cull)
-    mdir = torch.stack([mdx, mdy, mdz], dim=-1)
-    day_time = state.day_time.to(coef.device)
-    sky = sample_sky_packed_pair(sky_pack, sky_h, sky_w, mdir,
-                                 true_div(day_time, 24.0), state.sky_vars)
-    base = quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    cull table on that device (read by the CUDA kernel only). The sky and
+    quantize are render/sky.py sky_quantize over the one frame, reading the
+    state's clock and sky weights on that device. The `sky` stage mark
+    follows it (utils/profiling.py `mark`: launched only in a marked
+    capture)."""
+    planes = raytrace_planes(coef, params, height, width, n_tri_rows,
+                             n_sph_rows, cull=cull)
+    dev = coef.device
+    base = sky_quantize([p[None] for p in planes], sky_pack, sky_h, sky_w,
+                        state.day_time.to(dev).reshape(1),
+                        state.sky_vars.to(dev).reshape(1, 4))[0]
     profiling.mark("sky")
     return base
 
@@ -285,19 +285,16 @@ def bases_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,
                      cull=None) -> torch.Tensor:
     """Device half of K frames before FXAA, on the device of `coefs`: one
     kernel A launch (culling by `cull`, the packs' cull table on that
-    device), then the per-frame sky lookup + quantize → (K, height, width,
-    3) uint8. day_frac is each state's day_time / 24, as in _base.
-    row0/total_h place a band of `height` rows in frames of total_h rows
-    (parallel/mesh.py)."""
-    r, g, b, mw, mdx, mdy, mdz = raytrace_planes_batch(
-        coefs, params, height, width, n_tri_rows, n_sph_rows, row0, total_h,
-        cull)
+    device), then the sky lookup + quantize of all K frames
+    (render/sky.py sky_quantize, each state's clock and sky weights) →
+    (K, height, width, 3) uint8. row0/total_h place a band of `height`
+    rows in frames of total_h rows (parallel/mesh.py)."""
+    planes = raytrace_planes_batch(coefs, params, height, width, n_tri_rows,
+                                   n_sph_rows, row0, total_h, cull)
     dev = coefs.device
-    sky = sample_sky_packed_pair_batch(
-        sky_pack, sky_h, sky_w, torch.stack([mdx, mdy, mdz], dim=-1),
-        [true_div(st.day_time.to(dev), 24.0) for st in states],
-        [st.sky_vars for st in states])
-    return quantize(torch.stack([r, g, b], dim=-1) + mw[..., None] * sky)
+    return sky_quantize(planes, sky_pack, sky_h, sky_w,
+                        torch.stack([st.day_time for st in states]).to(dev),
+                        torch.stack([st.sky_vars for st in states]).to(dev))
 
 
 def frames_from_packs(coefs, params, n_tri_rows: int, n_sph_rows: int,

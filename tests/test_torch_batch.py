@@ -33,6 +33,7 @@ from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
 from raytracing_cuda_tpu_torch.render.pipeline import (frame_packs,
                                                        render_frames_batch)
+from raytracing_cuda_tpu_torch.render.sky import sky_quantize
 from raytracing_cuda_tpu_torch.scene import builders as tb
 from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.sim.actions import Action as TAction
@@ -293,7 +294,8 @@ def test_cpu_batch_wrappers_never_build_or_count(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     counts = lambda: (cuda_rt.raytrace_planes_batch.launches,  # noqa: E731
                       cuda_rt.raytrace_planes_batch.frames,
-                      fxaa.fxaa_batch.launches, fxaa.fxaa_batch.frames)
+                      fxaa.fxaa_batch.launches, fxaa.fxaa_batch.frames,
+                      sky_quantize.launches, sky_quantize.frames)
     before = counts()
     small_engine().step_and_frame_batch(varied_actions(2))
     assert counts() == before

@@ -37,18 +37,24 @@ from raytracing_cuda_tpu_torch.parallel.mesh import (render_frame_sharded,
 from raytracing_cuda_tpu_torch.render import cuda_rt, fxaa
 from raytracing_cuda_tpu_torch.render.packs import (base_to, pack_base,
                                                     pack_frame)
-from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
+from raytracing_cuda_tpu_torch.render.pipeline import (_base, batch_packs,
+                                                       bases_from_packs,
                                                        frame_packs,
                                                        frame_packs_torch,
                                                        pack_actions,
                                                        stack_packs)
+from raytracing_cuda_tpu_torch.render.sky import (sky_quantize,
+                                                  sky_quantize_torch)
 from raytracing_cuda_tpu_torch.scene import builders as tb
+from raytracing_cuda_tpu_torch.scene.textures import (pack_sky_all,
+                                                      procedural_skies)
 from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.sim.actions import Action
 from raytracing_cuda_tpu_torch.utils import profiling
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
 from raytracing_cuda_tpu_torch.utils.images import load_png
 from raytracing_cuda_tpu_torch.utils.timing import graph_nodes
+from test_torch_sky_quantize import sky_clocks, sky_planes
 
 pytestmark = pytest.mark.cuda
 
@@ -857,17 +863,21 @@ def test_graph_replay_counts_the_kernels_it_launches(dev):
     before = (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
               cuda_rt.raytrace_planes_batch.launches,
               cuda_rt.raytrace_planes_batch.frames, fxaa.fxaa_batch.launches,
-              pack_frame.launches)
+              pack_frame.launches, sky_quantize.launches,
+              sky_quantize.frames)
     for _ in range(3):
         eng.step_and_frame()
     assert pack_frame.launches == before[5] + 3      # one a frame replay
+    assert sky_quantize.launches == before[6] + 3
     eng.step_and_frame_batch(four)
     assert (cuda_rt.raytrace_planes.launches, fxaa.fxaa.launches,
             cuda_rt.raytrace_planes_batch.launches,
             cuda_rt.raytrace_planes_batch.frames,
-            fxaa.fxaa_batch.launches, pack_frame.launches) == (
+            fxaa.fxaa_batch.launches, pack_frame.launches,
+            sky_quantize.launches, sky_quantize.frames) == (
         before[0] + 3, before[1] + 3, before[2] + 1, before[3] + 4,
-        before[4] + 1, before[5] + 3 + 4)
+        before[4] + 1, before[5] + 3 + 4, before[6] + 3 + 1,
+        before[7] + 3 + 4)
 
 
 def test_eager_device_step_never_syncs(dev):
@@ -1305,3 +1315,191 @@ def test_first_call_after_the_profiler_replays_the_plain_graph(dev):
                       for g in table[key]]
     eng.step_and_frame()
     assert replayed == ["plain"]
+
+
+# --- the sky lookup and quantize (csrc/sky.cu) against its torch twin ---
+
+BIG_SKY = (4096, 8192)               # the benchmark's panoramas
+
+
+@pytest.fixture(scope="module")
+def big_sky(dev):
+    """The (4, 4096 * 8192) int32 stack of the procedural panoramas."""
+    return pack_sky_all(torch.from_numpy(procedural_skies(*BIG_SKY)).to(dev))
+
+
+def _sky_equal(planes, sky_pack, day_time, sky_vars, sky=BIG_SKY):
+    """One sky_quantize launch on the card equals sky_quantize_torch on the
+    card bit for bit, and counts one launch of K frames → the frames."""
+    K = planes[0].shape[0]
+    before = (sky_quantize.launches, sky_quantize.frames)
+    got = sky_quantize(planes, sky_pack, *sky, day_time, sky_vars)
+    torch.cuda.synchronize()
+    assert (sky_quantize.launches, sky_quantize.frames) == (
+        before[0] + 1, before[1] + K)
+    want = sky_quantize_torch(planes, sky_pack, *sky, day_time, sky_vars)
+    bad = (got != want).any(-1)
+    assert not bad.any(), (int(bad.sum()), bad.nonzero()[:8].tolist())
+    return got
+
+
+def _on(dev, planes, hours):
+    """planes and the clocks and sky weights of `hours`, one a frame, on
+    dev."""
+    day_time, sky_vars = sky_clocks(hours)
+    return (tuple(p.to(dev) for p in planes), day_time.to(dev),
+            sky_vars.to(dev))
+
+
+def _sky_equal_at(dev, sky_pack, planes, hours):
+    planes, day_time, sky_vars = _on(dev, planes, hours)
+    return _sky_equal(planes, sky_pack, day_time, sky_vars)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("h,w", [(720, 1280), (1080, 1920)])
+def test_sky_kernel_equals_twin_on_the_island(dev, big_sky, name, h, w):
+    """Kernel A's planes of the golden states at 720p and 1080p, with the
+    8192 x 4096 stack; and the one-frame pipeline (_base) on them."""
+    coef, params, nt, ns, cull = _packs(name, dev, h, w)
+    planes = [p[None] for p in cuda_rt.raytrace_planes(coef, params, h, w,
+                                                       nt, ns, cull=cull)]
+    st = tsim.state_to(make_state(**CASES[name]), dev)
+    got = _sky_equal(planes, big_sky, st.day_time.reshape(1),
+                     st.sky_vars.reshape(1, 4))
+    assert torch.equal(_base(coef, params, nt, ns, big_sky, *BIG_SKY, st, h,
+                             w, cull), got[0])
+
+
+# each side of every change of the sky blend, in float32 steps, and the
+# crossfades' midpoints (equal weights)
+BLEND_CHANGES = (4.0, 6.0, 8.0, 10.0, 16.0, 18.0, 20.0, 22.0)
+BLEND_HOURS = [float(np.nextafter(np.float32(c), np.float32(d)))
+               for c in BLEND_CHANGES for d in (0.0, 24.0)] + [
+    *BLEND_CHANGES, 5.0, 9.0, 17.0, 21.0]
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_sky_kernel_across_every_blend_change(dev, big_sky, K):
+    """A sky ray at every pixel of a 720p frame, at each hour of
+    BLEND_HOURS (K frames a launch, a clock and weights a frame), and at
+    weights set by hand: equal pairs, a pure panorama (wb = 0), ties with
+    a third."""
+    for i in range(0, len(BLEND_HOURS), K):
+        hours = BLEND_HOURS[i:i + K]
+        _sky_equal_at(dev, big_sky, sky_planes(len(hours), seed=i, h=720,
+                                               w=1280, sky=True), hours)
+    planes, day_time, _ = _on(dev, sky_planes(6, seed=99, h=720, w=1280,
+                                              sky=True), [9.5] * 6)
+    weights = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.0, 0.0, 0.5, 0.5],
+                            [0.0, 0.0, 1.0, 0.0], [1.0, 0.0, 0.0, 0.0],
+                            [0.25, 0.25, 0.25, 0.25], [0.0, 0.4, 0.2, 0.4]],
+                           device=dev)
+    _sky_equal(planes, big_sky, day_time, weights)
+
+
+@pytest.mark.parametrize("hour", [0.0, 6.0, 12.5, 23.999998])
+def test_sky_kernel_at_the_atan2_seam_and_the_poles(dev, big_sky, hour):
+    """Directions at atan2's seam (x = ±0 and the smallest floats either
+    side, z < 0: ±π) and at asin's ends (y = ±1 and past them, clamped),
+    a sky ray at every pixel."""
+    rng = np.random.default_rng(int(hour * 10))
+    n = 720 * 1280
+    tiny = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 1e-7, -1e-7],
+                    np.float32)
+    x = rng.choice(tiny, n)
+    z = -rng.uniform(1e-6, 1.0, n).astype(np.float32)
+    y = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    ends = np.array([1.0, -1.0, 1.0000001, -1.0000001, 0.99999994,
+                     -0.99999994, 2.0, -2.0], np.float32)
+    pole = rng.random(n) < 0.5
+    y[pole] = rng.choice(ends, int(pole.sum()))
+    planes = list(sky_planes(1, seed=7, h=720, w=1280, sky=True))
+    planes[4:] = [torch.from_numpy(v.reshape(1, 720, 1280)) for v in (x, y, z)]
+    _sky_equal_at(dev, big_sky, planes, [hour])
+
+
+@pytest.mark.parametrize("mw", ["zero", "positive"])
+def test_sky_kernel_miss_weight_zero_or_positive_everywhere(dev, big_sky,
+                                                            mw):
+    """Colours in and beyond [0, 1] and signed zeros, under a miss weight of
+    0 at every pixel (no texel read), or above 0 at every pixel."""
+    planes = list(sky_planes(2, seed=11, h=720, w=1280, sky=mw == "positive"))
+    if mw == "zero":
+        planes[3] = torch.zeros_like(planes[3])
+        planes[0][0, :1] = -0.0
+    _sky_equal_at(dev, big_sky, planes, [6.0, 19.0])
+
+
+def test_sky_kernel_k8_equals_its_single_frames(dev, big_sky):
+    """K = 8, a clock and weights a frame: the launch equals the twin and
+    each frame's own K = 1 launch."""
+    hours = [0.5, 4.2, 7.0, 9.3, 14.0, 17.6, 20.9, 23.0]
+    planes, day_time, sky_vars = _on(dev, sky_planes(8, seed=8, h=720,
+                                                     w=1280), hours)
+    got = _sky_equal(planes, big_sky, day_time, sky_vars)
+    for k in range(8):
+        one = sky_quantize(tuple(p[k:k + 1] for p in planes), big_sky,
+                           *BIG_SKY, day_time[k:k + 1], sky_vars[k:k + 1])
+        assert torch.equal(one[0], got[k]), k
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("h,w", [(37, 53), (2, 2), (5, 9), (3, 1282)])
+def test_sky_kernel_ragged_frames(dev, big_sky, h, w, K):
+    """Frames whose pixel count is no multiple of 4 (byte loads and stores,
+    a thread's last pixels past the frame) or whose frames K > 1 start off
+    16-byte alignment."""
+    _sky_equal_at(dev, big_sky, sky_planes(K, seed=h * w, h=h, w=w),
+                  [8.5, 16.5, 2.0][:K])
+
+
+def test_sky_kernel_band_at_row0_179(dev, big_sky):
+    """The 182-row band at row0 179 of a 720p frame (a 4-way split's chunk
+    with its halo rows), K = 2: bases_from_packs on the card equals the
+    twin on the band's planes and the full frames' rows."""
+    names = ["island_morning", "island_night"]
+    packs = [_packs(name, dev, 720, 1280) for name in names]
+    coefs = torch.stack([p[0] for p in packs])
+    params = torch.stack([p[1] for p in packs])
+    nt, ns, cull = packs[0][2:]
+    states = [tsim.state_to(make_state(**CASES[n]), dev) for n in names]
+    day_time = torch.stack([st.day_time for st in states])
+    sky_vars = torch.stack([st.sky_vars for st in states])
+    band = cuda_rt.raytrace_planes_batch(coefs, params, 182, 1280, nt, ns,
+                                         row0=179, total_h=720, cull=cull)
+    got = _sky_equal(band, big_sky, day_time, sky_vars)
+    assert torch.equal(bases_from_packs(
+        coefs, params, nt, ns, big_sky, *BIG_SKY, states, 182, 1280,
+        row0=179, total_h=720, cull=cull), got)
+    full = bases_from_packs(coefs, params, nt, ns, big_sky, *BIG_SKY, states,
+                            720, 1280, cull=cull)
+    assert torch.equal(full[:, 179:361], got)
+
+
+def test_sky_kernel_in_the_720p_engine_graph(dev):
+    """A 720p Engine with the benchmark's sky: each frame replay launches
+    the sky kernel once and equals the eager step; its base frame equals
+    the twin on the kernel A planes of its state."""
+    eng = Engine(RenderConfig(width=1280, height=720,
+                              procedural_sky_shape=BIG_SKY), device="cuda")
+    acts = random_actions(6, seed=21)
+    st = tsim.clone_state(eng.state)
+    for i, a in enumerate(acts):
+        before = sky_quantize.launches
+        got = eng.step_and_frame(a, 0.02)
+        torch.cuda.synchronize()
+        assert sky_quantize.launches == before + 1, i
+        st, want = eng._step_render("frame", st,
+                                    eng._upload(pack_actions([a], [0.02])))
+        assert torch.equal(got, want), i
+    assert set(eng._graphs) == {("frame", 1)}
+    coef, params, nt, ns, _ = eng._packs(eng.state)
+    planes = [p[None] for p in cuda_rt.raytrace_planes(
+        coef, params, 720, 1280, nt, ns, cull=eng.cull)]
+    base = _base(coef, params, nt, ns, eng.sky_pack, eng.sky_h, eng.sky_w,
+                 eng.state, 720, 1280, eng.cull)
+    twin = sky_quantize_torch(planes, eng.sky_pack, eng.sky_h, eng.sky_w,
+                              eng.state.day_time.reshape(1),
+                              eng.state.sky_vars.reshape(1, 4))
+    assert torch.equal(base, twin[0])
