@@ -6,8 +6,8 @@ render) on small shapes: returns (fn, args); fn(*args) renders the frame on
 `device`.
 
 dryrun_multichip(n, device) — the full frame step (input → state machine →
-row-sharded raytrace + FXAA with the halo exchange) over an n-device mesh
-on tiny shapes, again with strided sub-bands, then the frame-parallel and
+row-sharded raytrace + FXAA, each entry recomputing its halo rows, then
+the gather) over an n-device mesh on tiny shapes, again with strided sub-bands, then the frame-parallel and
 the (frames, rows) hybrid offline paths over the same devices. The mesh is
 n distinct cards where the machine has them, else n entries of the one
 device (parallel/mesh.py: bands then run one after another). Beyond the
@@ -109,8 +109,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
                                        sky_w, height, width, **clusters)
 
     # the full step: the state machine, then the megakernel row-sharded
-    # over the mesh with the halo exchange for FXAA, from the static
-    # all-panorama sky stack
+    # over the mesh, each entry with the halo rows its FXAA reads, from the
+    # static all-panorama sky stack
     action = Action.idle()._replace(move_forward=np.int32(1),
                                     mouse_dx=np.float32(1.0))
     state = sim.animate(state, action, 1 / 60)

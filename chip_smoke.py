@@ -45,14 +45,12 @@ Phases (any failure exits non-zero):
      version and the full frame's rows, render_frame_sharded against
      Engine frames (FXAA on and off); Engine(sharded=[cuda:0] * 4), one
      CUDA graph per mesh entry per call, driven with its band counter, in
-     turns with the single-device loop and the exchanging eager step; at
-     interleave 1 and 2, 60 frames, 60 preview-2 frames and 8 batches of
-     K = 8 against the eager step and the single-device graph Engine,
-     frames, states and every replica bit for bit; the golden states
-     through the sharded graphs; the sharded frame() (one graph per entry
-     rendering its rows of its replica, unstepped) against the exchanging
-     eager frame and the single-device frame() at the golden states and
-     the worst pose; Engine.render_script_dp frame DP and
+     turns with the single-device loop; at interleave 1 and 2, 60 frames,
+     60 preview-2 frames and 8 batches of K = 8 against the single-device
+     graph Engine, frames, states and every replica bit for bit; the
+     golden states through the sharded graphs; the sharded frame() (one
+     graph per entry rendering its rows of its replica, unstepped) against
+     the single-device frame() at the golden states and the worst pose; Engine.render_script_dp frame DP and
      hybrid (eager, capture, replay) against step_and_frame; the replays
      under sync debug mode "error"; each entry's graph by replay, host ms
      per call, the host's API calls per call (profiler: 4 graph launches,
@@ -73,8 +71,8 @@ Phases (any failure exits non-zero):
      kernel), frame() eager and by replay in turns, host ms per call,
      capture seconds, graph nodes and pools; `fast` at two chunk sizes; a
      row-sharded `fast` Engine on [cuda:0] * 4 at interleave 1 and 2, one
-     graph per entry per call (entry_bands_plain), against the exchanging
-     render_bands_plain and the unsharded Engine; sky_cache=False (its
+     graph per entry per call (entry_bands_plain), against the unsharded
+     Engine, frames and states; sky_cache=False (its
      frame() graph against the eager frame, its step, preview 2 and batch
      of 3 graphs against the eager device step, the replays under sync
      debug mode "error", device ms by replay, host ms per call, API calls
@@ -1406,8 +1404,7 @@ def main() -> int:
             f"bit for bit; mismatches {mismatch}")
 
     # the main path of this slice: a sharded Engine's loop, one CUDA graph
-    # per mesh entry per call, in turns with the single-device loop and
-    # with the exchanging eager step it replaced
+    # per mesh entry per call, in turns with the single-device loop
     from raytracing_cuda_tpu_torch.parallel.mesh import place_bands
     from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
     from raytracing_cuda_tpu_torch.utils.timing import (FrameTimer,
@@ -1421,28 +1418,13 @@ def main() -> int:
                          DEVICE, sharded=mesh4, share_assets_from=eng)
               for il in (1, 2)}
 
-    def eager_run(e, n):
-        """n idle frames of e's exchanging eager step (its state step and
-        packs on the Engine's device, then render_bands: the sharded
-        Engine's step before its graphs), timed as Engine.run times."""
-        st = e.state
-        timer = FrameTimer(W, H, e.device).start()
-        for _ in range(n):
-            st, _ = e._step_render("frame", st,
-                                   e._upload(idle.pack(1 / 60)[None]))
-            timer.tick()
-        return timer.stop()
-
     loop_ms = {}
-    arms = (("single graph", eng, None), ("sharded graph il1", eng_sh[1],
-                                          None),
-            ("sharded eager il1", eng_sh[1], eager_run),
-            ("sharded graph il2", eng_sh[2], None),
-            ("sharded eager il2", eng_sh[2], eager_run))
-    for label, e, eager in (*arms, *arms[::-1]):
+    arms = (("single graph", eng), ("sharded graph il1", eng_sh[1]),
+            ("sharded graph il2", eng_sh[2]))
+    for label, e in (*arms, *arms[::-1]):
         e.set_state(make_state(6.0))
         reset_counts()
-        st = eager(e, 60) if eager else e.run(60)
+        st = e.run(60)
         counts = read_counts()
         if label == "sharded graph il1":
             band_counts = counts
@@ -1460,16 +1442,16 @@ def main() -> int:
     require(band_counts["fxaa"] == 0 and band_counts["raytrace_megakernel"]
             == 0, "the sharded loop ran no full-frame launch")
 
-    # the graph path against the exchanging eager step and the
-    # single-device graph Engine, frames and states bit for bit, and every
-    # replica against that state after every call
+    # the graph path against the single-device graph Engine, frames and
+    # states bit for bit, and every replica against that state after every
+    # call
     pv = {il: Engine(dataclasses.replace(cfg, preview=2, shard_interleave=il),
                      DEVICE, sharded=mesh4, share_assets_from=eng)
           for il in (1, 2)}
     eng_pv = Engine(dataclasses.replace(cfg, preview=2), DEVICE,
                     share_assets_from=eng)
 
-    def sharded_vs_eager(e, one, kind, n, k):
+    def sharded_vs_single(e, one, kind, n, k):
         acts = toggling_actions(n, seed=23)
         dts = [1 / 60 + 0.01 * (i % 4) for i in range(n)]
         call = {"frame": lambda x, a, d: x.step_and_frame(a[0], d[0]),
@@ -1478,19 +1460,14 @@ def main() -> int:
                 "batch": lambda x, a, d: x.step_and_frame_batch(a, d)}[kind]
         for x in (e, one):
             x.set_state(make_state(9.5))
-        st = sim.clone_state(e.state)
-        ok = dict.fromkeys(("eager", "single", "replicas"), True)
+        ok = dict.fromkeys(("single", "replicas"), True)
         for i in range(0, n, k):
             a, d = acts[i:i + k], dts[i:i + k]
             got = call(e, a, d)
-            st, want = e._step_render(kind, st,
-                                      e._upload(pack_actions(a, d)))
-            ok["eager"] &= (torch.equal(got, want)
-                            and states_equal(e.state, st))
             ok["single"] &= (torch.equal(got, call(one, a, d))
-                             and states_equal(one.state, st))
+                             and states_equal(e.state, one.state))
             ok["replicas"] &= all(
-                states_equal(live, st)
+                states_equal(live, one.state)
                 for live in e._replicas[tuple(e.mesh)].live)
         return ok
 
@@ -1498,12 +1475,11 @@ def main() -> int:
         for kind, n, k, e, one in (("frame", 60, 1, eng_sh[il], eng),
                                    ("preview", 60, 1, pv[il], eng_pv),
                                    ("batch", 64, BATCH, eng_sh[il], eng)):
-            ok = sharded_vs_eager(e, one, kind, n, k)
+            ok = sharded_vs_single(e, one, kind, n, k)
             require(all(ok.values()),
                     f"sharded {kind} (K={k}, [cuda:0] * 4, interleave {il}): "
                     f"{n} frames with a preset change and an FXAA toggle by "
-                    f"one CUDA graph per entry equal the exchanging eager "
-                    f"step ({ok['eager']}) and the single-device graph "
+                    f"one CUDA graph per entry equal the single-device graph "
                     f"Engine ({ok['single']}), frames and states bit for "
                     f"bit; every replica equals that state after every "
                     f"call ({ok['replicas']})")
@@ -1525,9 +1501,8 @@ def main() -> int:
                     f"{rm:.5f} off>2 {off:.4%}")
 
     # the sharded frame(): one CUDA graph per entry rendering its rows of
-    # its replica, unstepped, against the exchanging reference and the
-    # single-device frame graph; a replay launches each band form once per
-    # entry and nothing else
+    # its replica, unstepped, against the single-device frame graph; a
+    # replay launches each band form once per entry and nothing else
     frame_sh = {}
     for il in (1, 2):
         e = eng_sh[il]
@@ -1546,15 +1521,14 @@ def main() -> int:
                         and counts["fxaa_band"] == 4 * il
                         and counts["raytrace_megakernel"] == 0
                         and counts["fxaa"] == 0)
-                ok &= (torch.equal(img, e._frame_eager())
-                       and torch.equal(img, eng.frame()))
+                ok &= torch.equal(img, eng.frame())
         frame_sh[il] = e._replicas[tuple(e.mesh)].graphs["render", 1]
         require(ok and counts_ok and len(frame_sh[il]) == 4,
                 f"sharded frame() ([cuda:0] * 4, interleave {il}), the 4 "
                 f"golden states and the worst pose, twice each: by one CUDA "
                 f"graph per entry once warm ({len(frame_sh[il])} graphs), "
-                f"equal to the exchanging eager frame and the single-device "
-                f"frame() bit for bit ({ok}); a replay launched kernel A's "
+                f"equal to the single-device frame() bit for bit ({ok}); "
+                f"a replay launched kernel A's "
                 f"and kernel B's band forms {4 * il} times each (once per "
                 f"chunk) and nothing else ({counts_ok})")
 
@@ -1627,25 +1601,25 @@ def main() -> int:
     host_ms = {}
     for il in (1, 2):
         e = eng_sh[il]
-        for label, call in (("graph", lambda: e.step_and_frame(idle)),
-                            ("eager", lambda: e._step_render(
-                                "frame", e.state,
-                                e._upload(idle.pack(1 / 60)[None])))):
-            e.set_state(make_state(6.0))
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(60):
-                call()
-            t_host = (time.perf_counter() - t0) * 1e3 / 60
-            torch.cuda.synchronize()
-            drained = (time.perf_counter() - t0) * 1e3 / 60
-            # a call's own host time, which a full launch queue does not
-            # throttle: 8 calls enqueued from an idle device, 5 times
-            host_ms[f"{label} il{il}"] = (
-                t_host, drained, statistics.median(
-                    from_idle(call, 8) for _ in range(5)))
+
+        def call():
+            e.step_and_frame(idle)
+
+        e.set_state(make_state(6.0))
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(60):
+            call()
+        t_host = (time.perf_counter() - t0) * 1e3 / 60
+        torch.cuda.synchronize()
+        drained = (time.perf_counter() - t0) * 1e3 / 60
+        # a call's own host time, which a full launch queue does not
+        # throttle: 8 calls enqueued from an idle device, 5 times
+        host_ms[f"graph il{il}"] = (
+            t_host, drained, statistics.median(
+                from_idle(call, 8) for _ in range(5)))
     replay_host = {}
     for il in (1, 2):
         graphs = eng_sh[il]._replicas[tuple(eng_sh[il].mesh)].graphs
@@ -1753,14 +1727,13 @@ def main() -> int:
         print(f"sharded graph path, interleave {il}: entries' graphs by "
               f"replay (3 rounds) {entry_ms[il]} ms, sum median "
               f"{dev_ms:.4f} ms; loop frame ms (CUDA events) "
-              f"{loop_ms[f'sharded graph il{il}']}, eager "
-              f"{loop_ms[f'sharded eager il{il}']}, single graph "
+              f"{loop_ms[f'sharded graph il{il}']}, single graph "
               f"{loop_ms['single graph']}; in turns, the loop's frame ms "
               f"against its entries' graphs replayed back to back (CUDA "
               f"events, medians of 30) {bound_pairs[il]}; host ms per call "
               f"(60 enqueued ahead of the device, drained, 8 from an idle "
-              f"device) graph {host_ms[f'graph il{il}']}, eager "
-              f"{host_ms[f'eager il{il}']}; host ms per entry replay (8 "
+              f"device) graph {host_ms[f'graph il{il}']}; host ms per entry "
+              f"replay (8 "
               f"from an idle device) {replay_host[il]}; one entry's gather "
               f"{gather_ms[il]:.4f} ms by replay [{card}]", flush=True)
         slowest = max(statistics.median(r[e] for r in entry_ms[il])
@@ -2009,8 +1982,7 @@ def main() -> int:
           flush=True)
 
     # a row-sharded fast Engine: one CUDA graph per mesh entry per call
-    # (entry_bands_plain) against the exchanging render_bands_plain
-    # (_frame_eager, _step_render) and the unsharded Engine's graphs
+    # (entry_bands_plain) against the unsharded Engine's graphs
     sharded_plain = {}
     for il, names in ((1, sorted(CASES)), (2, sorted(CASES)[:2])):
         sh = Engine(dataclasses.replace(cfg, path="fast",
@@ -2022,25 +1994,20 @@ def main() -> int:
             st = make_state(**CASES[name])
             sh.set_state(st)
             one.set_state(st)
-            img = sh.frame()
-            if not (torch.equal(img, sh._frame_eager())
-                    and torch.equal(img, one.frame())):
+            if not torch.equal(sh.frame(), one.frame()):
                 mismatch.append(name)
         for i, a in enumerate(random_actions(3, seed=32 + il)):
-            before = sh.state
             got = sh.step_and_frame(a, 0.05)
-            new, want = sh._step_render(
-                "frame", before, sh._upload(pack_actions([a], [0.05])))
-            if not (torch.equal(got, want) and states_equal(sh.state, new)
-                    and torch.equal(got, one.step_and_frame(a, 0.05))):
+            if not (torch.equal(got, one.step_and_frame(a, 0.05))
+                    and states_equal(sh.state, one.state)):
                 mismatch.append(f"step {i}")
         graphs = sh._replicas[tuple(sh.mesh)].graphs
         require(not mismatch and len(graphs[("render", 1)]) == 4
                 and len(graphs[("bands", 1)]) == 4,
                 f"Engine(path=fast, sharded=[cuda:0] * 4, interleave {il}): "
                 f"frame() at {names} and 3 step_and_frame calls by one CUDA "
-                f"graph per entry equal the exchanging render_bands_plain "
-                f"and the unsharded Engine bit for bit; mismatches "
+                f"graph per entry equal the unsharded Engine, frames and "
+                f"states bit for bit; mismatches "
                 f"{mismatch}")
         reset_counts()
         sh.step_and_frame()

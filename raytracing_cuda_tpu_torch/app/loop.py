@@ -31,8 +31,8 @@ render-only graph writes nothing); `Engine.state` hands out a snapshot
 graphs' output, so no later call overwrites it. A failed capture raises:
 there is no eager fallback on the card. A replay adds to each kernel
 wrapper's launch counter the launches its capture recorded.
-`_frame_eager()` keeps the eager render the frame graphs are held
-against.
+`_frame_eager()` keeps the eager single-device render the frame graphs
+are held against, a sharded Engine's too.
 
 While a torch.profiler session records (utils/profiling.py), each call is
 a host span `engine.call` holding its upload, replay or eager run and
@@ -107,9 +107,7 @@ from raytracing_cuda_tpu_torch.parallel.mesh import (as_device, as_mesh,
                                                      band_rows, devices,
                                                      entry_bands,
                                                      entry_bands_plain,
-                                                     make_mesh, place_bands,
-                                                     render_bands,
-                                                     render_bands_plain)
+                                                     make_mesh, place_bands)
 from raytracing_cuda_tpu_torch.render.cuda_rt import (cull_table,
                                                       raytrace_planes,
                                                       raytrace_planes_batch)
@@ -485,26 +483,6 @@ class Engine:
                            self.sph_clusters, self.tri_subs, self.cull,
                            self.pack_base)
 
-    def _bands(self, coefs, params, n_tri: int, n_sph: int, states):
-        """K frames in row bands over the engine's mesh → (K, H, W, 3)
-        uint8 on the engine device."""
-        c = self.config
-        return render_bands(coefs, params, n_tri, n_sph, states,
-                            self._skies, self.sky_h, self.sky_w,
-                            mesh=self.mesh, height=c.height, width=c.width,
-                            interleave=c.shard_interleave,
-                            cull=self.cull).to(self.device)
-
-    def _bands_plain(self, state) -> torch.Tensor:
-        """The `fast` / `oracle` frame of `state` in row bands over the
-        engine's mesh, exchanging halo rows (render_bands_plain, early exits
-        decided on the host) → (H, W, 3) uint8 on the engine device."""
-        c = self.config
-        return render_bands_plain(
-            self.scene, state, self.sky_texels, mesh=self.mesh,
-            height=c.height, width=c.width, chunk=c.chunk, aspect=c.aspect,
-            aa=state.aa, interleave=c.shard_interleave).to(self.device)
-
     def _render(self, state, early_exit: bool | None = None) -> torch.Tensor:
         """The frame of `state` on one device: from the static stack, or
         where the sky is blended per frame (the `fast` and `oracle` paths,
@@ -540,18 +518,11 @@ class Engine:
         return self._run_single("render", None)
 
     def _frame_eager(self) -> torch.Tensor:
-        """The current state's frame, rendered eagerly: the reference the
-        frame graphs are held against, with the `fast` renderer's early
-        exits decided on the host (for a sharded Engine the exchanging
-        parallel/mesh.py render_bands, or render_bands_plain on the `fast`
-        and `oracle` paths)."""
-        if self.mesh is None:
-            return self._render(self.state, early_exit=True)
-        if self.path != "auto":
-            return self._bands_plain(self.state)
-        coef, params, n_tri, n_sph, _ = self._packs()
-        return self._bands(coef[None], params[None], n_tri, n_sph,
-                           [self.state])[0]
+        """The current state's frame, rendered eagerly on the engine device,
+        with the `fast` renderer's early exits decided on the host: the
+        reference the frame graphs are held against (a sharded Engine's
+        too, whose entries' rows gathered equal the single-device frame)."""
+        return self._render(self.state, early_exit=True)
 
     def _step_render(self, kind: str, state, avs,
                      early_exit: bool | None = None):
@@ -560,31 +531,13 @@ class Engine:
         output). kind "frame": one frame; "preview": one frame
         box-downsampled by config.preview; "batch": K frames, each kernel
         launched once (from the static stack; where the sky is blended per
-        frame K single frames); "render" (single device, avs None): the
-        frame of `state` itself, unstepped. On one device it is what the CUDA
-        graph captures; early_exit as in render_frame, None: the Engine's
-        own form (on a card every bounce and sweep masked, as captured;
-        True is the host-decided reference). On a sharded Engine it is the
-        exchanging reference the entries' graphs are held against (the
-        state stepped on the engine device, then packed and
-        parallel/mesh.py render_bands, or render_bands_plain on the `fast`
-        and `oracle` paths)."""
+        frame K single frames); "render" (avs None): the frame of `state`
+        itself, unstepped. It is what the single-device CUDA graph captures
+        (a sharded Engine's entries run _shard_step); early_exit as in
+        render_frame, None: the Engine's own form (on a card every bounce
+        and sweep masked, as captured; True is the host-decided
+        reference)."""
         c = self.config
-        if self.mesh is not None:
-            if self.path != "auto":
-                states = step_states(state, avs, self.device)
-                img = torch.stack([self._bands_plain(st) for st in states])
-            else:
-                coefs, params, n_tri, n_sph, _, states = batch_packs(
-                    self.scene, state, avs, c.height, c.width, c.aspect,
-                    self.tri_clusters, self.sph_clusters, self.tri_subs,
-                    self.cull, self.pack_base)
-                img = self._bands(coefs, params, n_tri, n_sph, states)
-            if kind != "batch":
-                img = img[0]
-            if kind == "preview":
-                img = _box_downsample(img, c.preview)
-            return states[-1], img
         if kind == "render":
             profiling.mark("begin")
             return state, self._render(state, early_exit)
@@ -891,17 +844,9 @@ class Engine:
                 n_devices = max(len(devices(None, kind, "frame DP"))
                                 // n_rows, 1)
             mesh = pframes.make_hybrid_mesh(n_devices, n_rows, kind)
-        # a flat list is frame DP: one device per frame group
-        mesh = [as_mesh(g if isinstance(g, (list, tuple)) else [g])
-                for g in mesh]
-        if not mesh or len({len(g) for g in mesh}) > 1:
-            raise ValueError("a hybrid mesh is a non-empty list of equally "
-                             "long device lists")
+        mesh, per, interleave = pframes.hybrid_layout(
+            mesh, len(vecs), c.height, c.shard_interleave)
         n_frames, n_rows = len(mesh), len(mesh[0])
-        # one device per group: striding does not exist (as _row_mesh)
-        interleave = c.shard_interleave if n_rows > 1 else 1
-        per = pframes.frame_blocks(len(vecs), n_frames, "frame axis")
-        band_rows(c.height, n_rows, interleave)
         flat = [d for g in mesh for d in g]
 
         def step(entry, state, avs):

@@ -11,17 +11,15 @@ row bands: n_frames groups of n_rows devices, each group rendering its
 block of frames in bands; frame DP is the hybrid with one device per
 group.
 
-Two forms, with equal frames and end state:
-
-- `script_entry` is what one mesh entry runs on its own device, with no
-  exchange and no hand-off (the Engine's path, one CUDA graph per entry on
-  a card, app/loop.py): it scans all K actions from its replica of the
-  state, as the JAX package's replicated lax.scan (frames.py:63-127), then
-  packs its group's block and renders its rows of it
-  (parallel/mesh.py entry_bands);
-- `render_script_dp` / `render_script_hybrid` are the reference: all K
-  states stepped and packed on the scene's device, each group's block
-  copied to its devices and rendered by render_bands.
+Each mesh entry renders on its own device, with no exchange and no
+hand-off: its rows (parallel/mesh.py entry_bands) of its group's block.
+`script_entry` is what an entry of the Engine's path runs (one CUDA graph
+per entry on a card, app/loop.py): it scans all K actions from its replica
+of the state, as the JAX package's replicated lax.scan (frames.py:63-127),
+then packs its group's block and renders its rows of it.
+`render_script_dp` / `render_script_hybrid` step and pack all K states
+once, on the scene's device, and copy each group's block to its devices;
+the frames and the end state are the same.
 
 A mesh is a list of torch.devices (a hybrid mesh a list of such lists);
 devices may repeat, as in parallel/mesh.py. The result is gathered on the
@@ -35,12 +33,12 @@ import torch
 from raytracing_cuda_tpu_torch.core.types import Scene
 from raytracing_cuda_tpu_torch.parallel.mesh import (as_mesh, band_rows,
                                                      devices, entry_bands,
-                                                     render_bands)
+                                                     place_bands)
 from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
                                                        pack_actions,
                                                        stack_packs,
                                                        step_states)
-from raytracing_cuda_tpu_torch.sim.state import FrameState
+from raytracing_cuda_tpu_torch.sim.state import FrameState, state_to
 
 
 def make_frames_mesh(n_devices: int | None = None,
@@ -73,6 +71,25 @@ def frame_blocks(K: int, n: int, axis: str) -> int:
     return K // n
 
 
+def hybrid_layout(mesh, K: int, height: int, interleave: int):
+    """The layout of K frames over a (frames, rows) mesh → (mesh as lists of
+    torch.devices, frames per group, the interleave its groups render with):
+    each entry of mesh is a list of devices, or one device (a group of
+    one); the groups are equally long, the frames divide over them
+    (frame_blocks) and the height over the rows of a group times the
+    interleave, which is 1 where a group has one device (striding does not
+    exist there)."""
+    mesh = [as_mesh(g if isinstance(g, (list, tuple)) else [g])
+            for g in mesh]
+    if not mesh or len({len(g) for g in mesh}) > 1:
+        raise ValueError("a hybrid mesh is a non-empty list of equally long "
+                         "device lists")
+    interleave = interleave if len(mesh[0]) > 1 else 1
+    per = frame_blocks(K, len(mesh), "frame axis")
+    band_rows(height, len(mesh[0]), interleave)
+    return mesh, per, interleave
+
+
 def render_script_dp(scene: Scene, state: FrameState, sky_packs: dict,
                      sky_h: int, sky_w: int, action_vecs, *, mesh,
                      height: int, width: int, aspect: float | None = None,
@@ -98,30 +115,30 @@ def render_script_hybrid(scene: Scene, state: FrameState, sky_packs: dict,
     """K frames over a (frames, rows) mesh → (imgs (K, H, W, 3) uint8 on
     the first device, last_state): group g renders its block of K / n_frames
     frames in row bands over its n_rows devices (frames.py:152-256), each
-    kernel launched once per band for the block.
+    device its rows by entry_bands, each kernel launched once per chunk for
+    the block, and place_bands gathers them.
 
     K must divide over the groups and height over n_rows * interleave.
     sky_packs maps each device of mesh to its copy of the static sky
     stack."""
-    mesh = [as_mesh(group) for group in mesh]
-    if not mesh or len({len(group) for group in mesh}) > 1:
-        raise ValueError("a hybrid mesh is a non-empty list of equally long "
-                         "device lists")
     vecs = pack_actions(action_vecs, None)
-    per = frame_blocks(len(vecs), len(mesh), "frame axis")
-    band_rows(height, len(mesh[0]), interleave)
+    mesh, per, interleave = hybrid_layout(mesh, len(vecs), height,
+                                          interleave)
     coefs, params, nt, ns, cull, states = batch_packs(
         scene, state, vecs, height, width, aspect, tri_clusters,
         sph_clusters, t_subs)
-    first = mesh[0][0]
-    blocks = []
+    n_rows = len(mesh[0])
+    imgs = torch.empty((len(vecs), height, width, 3), dtype=torch.uint8,
+                       device=mesh[0][0])
     for g, group in enumerate(mesh):
         s = slice(g * per, (g + 1) * per)
-        blocks.append(render_bands(
-            coefs[s], params[s], nt, ns, states[s], sky_packs, sky_h, sky_w,
-            mesh=group, height=height, width=width, interleave=interleave,
-            cull=cull).to(first, non_blocking=True))
-    return torch.cat(blocks), states[-1]
+        for row, d in enumerate(group):
+            place_bands(imgs[s], entry_bands(
+                coefs[s].to(d), params[s].to(d), nt, ns,
+                [state_to(st, d) for st in states[s]], sky_packs[d], sky_h,
+                sky_w, entry=row, n=n_rows, height=height, width=width,
+                interleave=interleave, cull=cull.to(d)), row, n_rows)
+    return imgs, states[-1]
 
 
 def script_entry(scene: Scene, state: FrameState, vecs, sky_pack,

@@ -10,34 +10,24 @@ entry per band slot, run from one process. A device may repeat: ["cpu"] *
 n stands in for the JAX tests' virtual CPU devices, ["cuda:0"] * n runs n
 bands one after another on one card.
 
-Two forms of the same frame, equal bit for bit to the single-device frame
-(the JAX package's contract, mesh.py:192-194):
+Each mesh entry renders its own rows on its own device, with no exchange
+(`entry_bands`; the Engine's sharded path runs it as one CUDA graph per
+entry on a card, app/loop.py): its chunks entry, entry + n, …, each
+rendered by kernel A with one halo row above and one below recomputed,
+then the sky lookup and quantize, and kernel B's band form on the halo'd
+band. Rays come from global rows, so a recomputed halo row equals the
+neighbouring chunk's edge row bit for bit and there is nothing to
+exchange. `place_bands` then copies each entry's rows into the frame (the
+gather, one copy per entry), which equals the single-device frame bit for
+bit (the JAX package's contract, mesh.py:192-194). `render_frame_sharded`
+packs the frame once and runs every entry so.
 
-- `entry_bands` is what a mesh entry runs on its own device, with no
-  exchange (the Engine's sharded path, one CUDA graph per entry on a
-  card, app/loop.py): its chunks entry, entry + n, …, each rendered by
-  kernel A with one halo row above and one below recomputed, then the sky
-  lookup and quantize, and kernel B's band form on the halo'd band.
-  `place_bands` then copies each entry's rows into the frame (the gather,
-  one copy per entry).
-- `render_bands` / `filter_bands` are the exchanging reference: the frame
-  is derived and packed once, on the device of the scene, the packs go to
-  each band's device, global chunk c of the frame's rows runs on its
-  device (kernel A at row offset c * rows, then the flat pair sky lookup
-  and quantize), the last row of chunk c - 1 and the first row of chunk
-  c + 1 then move to chunk c's device (zeros at the frame's top and
-  bottom, which pass through FXAA), and kernel B's band form filters the
-  chunk, judging borders by global row.
-
-A band of a `fast` or `oracle` frame runs no megakernel: its chunk is
-`render_base_image_fast` at the chunk's row offset. The JAX package
-renders the fast renderer in bands for `path="oracle"` too
-(mesh.py:115-118), and so does this port, in the same two forms:
-`entry_bands_plain` (an entry derives the frame, blends the sky on its
-device and renders its chunks with their halo rows recomputed, the early
-exits masked where a CUDA graph captures it; the Engine's sharded path)
-and the exchanging `render_bands_plain` (the sky blended once per frame,
-then the halo exchange and kernel B).
+A band of a `fast` or `oracle` frame runs no megakernel: the entry derives
+the frame and blends the sky on its device and renders its chunks and
+their halo rows with `render_base_image_fast` at their global rows
+(`entry_bands_plain`; the JAX package renders the fast renderer in bands
+for `path="oracle"` too, mesh.py:115-118), the early exits masked where a
+CUDA graph captures it.
 
 The JAX package's grouped sky resolve, and with it the band alignment rule
 of `_resolve_grouped`, is left behind: the port's sky lookup is per pixel.
@@ -127,72 +117,6 @@ def band_rows(height: int, n: int, interleave: int) -> int:
     return height // (n * interleave)
 
 
-def render_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
-                 sky_packs: dict, sky_h: int, sky_w: int, *, mesh,
-                 height: int, width: int, interleave: int = 1,
-                 aa=None, cull=None) -> torch.Tensor:
-    """K frames rendered in row bands over mesh → (K, height, width, 3)
-    uint8 on mesh[0], rows in frame order.
-
-    coefs (K, n, C) and params (K, P) are the frames' packs (batch_packs);
-    sky_packs maps every device of mesh to its copy of the static sky
-    stack; aa, a (K,) bool tensor (default: the states' toggles), says
-    whether frame k is filtered; cull is the packs' cull table (copied to
-    each device, read by the CUDA kernel only). Chunk c runs on mesh[c % n], so device d
-    renders chunks d, d + n, … (`interleave` of them; contiguous bands at
-    1). The body of
-    band_shard_fn (mesh.py:68-161), with the K frames of a frame group in
-    each launch as render_script_hybrid maps it over local frames.
-    """
-    mesh = as_mesh(mesh)
-    n = len(mesh)
-    sub = band_rows(height, n, interleave)
-    chunks = n * interleave
-    if aa is None:
-        aa = torch.stack([st.aa for st in states])
-    packs = {d: (coefs.to(d), params.to(d),
-                 None if cull is None else cull.to(d))
-             for d in dict.fromkeys(mesh)}
-
-    # every chunk's quantized rows on its device
-    bases = []
-    for c in range(chunks):
-        dev = mesh[c % n]
-        coefs_d, params_d, cull_d = packs[dev]
-        bases.append(bases_from_packs(
-            coefs_d, params_d, n_tri_rows, n_sph_rows, sky_packs[dev], sky_h,
-            sky_w, states, sub, width, row0=c * sub, total_h=height,
-            cull=cull_d))
-    return filter_bands(bases, aa, mesh[0], sub, height)
-
-
-def filter_bands(bases, aa, device, sub: int, height: int) -> torch.Tensor:
-    """Row chunks of K frames ((K, sub, width, 3) uint8 each, on their
-    devices, in frame order) → the K filtered frames (K, height, width, 3)
-    on `device`: the halo exchange by global chunk index, then FXAA on
-    each chunk (a whole frame, with no halo rows, where there is one
-    chunk); a frame whose aa[k] is off keeps its base rows
-    (mesh.py:155-159). aa: a (K,) bool tensor, selected on each chunk's
-    device, so the toggles are never read back to the host."""
-    chunks = len(bases)
-    outs = []
-    for c, base in enumerate(bases):
-        dev = base.device
-        if chunks == 1:
-            out = fxaa_batch(base)
-        else:
-            zero = torch.zeros_like(base[:, :1])
-            top = (bases[c - 1][:, -1:].to(dev, non_blocking=True) if c > 0
-                   else zero)
-            bot = (bases[c + 1][:, :1].to(dev, non_blocking=True)
-                   if c < chunks - 1 else zero)
-            out = fxaa_ext(torch.cat([top, base, bot], dim=1), c * sub,
-                           height)
-        on = aa.to(dev)[:, None, None, None]
-        outs.append(torch.where(on, out, base).to(device, non_blocking=True))
-    return torch.cat(outs, dim=1)
-
-
 def entry_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
                 sky_pack, sky_h: int, sky_w: int, *, entry: int, n: int,
                 height: int, width: int, interleave: int = 1,
@@ -209,7 +133,7 @@ def entry_bands(coefs, params, n_tri_rows: int, n_sph_rows: int, states,
     the halo'd band and each frame's `aa` flag picks FXAA or the base rows
     on the device. Rays come from global rows, so the halo rows equal the
     neighbouring chunks' edge rows bit for bit: recomputing them replaces
-    the exchange of filter_bands. One chunk (n * interleave == 1) is the
+    the JAX package's halo exchange. One chunk (n * interleave == 1) is the
     whole frame, filtered by kernel B's K-frame form."""
     def render(lo: int, hi: int):
         return bases_from_packs(coefs, params, n_tri_rows, n_sph_rows,
@@ -259,7 +183,7 @@ def entry_bands_plain(scene: Scene, state: FrameState,
     The entry derives the frame and blends the sky on its own device, then
     renders each of its chunks' rows and their halo rows with
     render_base_image_fast at their global rows (the fast renderer on both
-    paths, as render_bands_plain and mesh.py:115-118 of the JAX package),
+    paths, as mesh.py:115-118 of the JAX package),
     and filters them as entry_bands does. early_exit as in
     render_base_image_fast: False reads nothing back, so a CUDA graph can
     capture the entry."""
@@ -361,41 +285,6 @@ def copy_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
             torch.cuda.current_stream(dst.device).wait_event(done)
 
 
-def render_bands_plain(scene: Scene, state: FrameState,
-                       sky_texels: torch.Tensor, *, mesh, height: int,
-                       width: int, chunk: int = 32768,
-                       aspect: float | None = None, aa=True,
-                       interleave: int = 1) -> torch.Tensor:
-    """One frame of the `fast` and `oracle` paths in row bands over mesh →
-    (height, width, 3) uint8 on mesh[0]: the sky blended once on the device
-    of `sky_texels` and copied to each device of mesh, chunk c rendered by
-    render_base_image_fast at row offset c * rows on mesh[c % n], then
-    filter_bands. aa: the FXAA toggle, a bool or a 0-d bool tensor. The
-    non-kernel branch of band_shard_fn (mesh.py:115-118)."""
-    mesh = as_mesh(mesh)
-    n = len(mesh)
-    sub = band_rows(height, n, interleave)
-    if aspect is None:
-        aspect = width / height
-    state = state_to(state, scene.color.device)
-    scene_f, lights, ambient = derive_frame(scene, state)
-    rays = camera_rays(state.cam, aspect)
-    blended = replicate(blend_sky(sky_texels, state.sky_vars), mesh)
-    day_frac = true_div(state.day_time, 24.0)
-    frame = {d: (to_device(scene_f, d), to_device(lights, d), ambient.to(d),
-                 to_device(rays, d)) for d in blended}
-    bases = []
-    for c in range(n * interleave):
-        dev = mesh[c % n]
-        scene_d, lights_d, ambient_d, rays_d = frame[dev]
-        bases.append(render_base_image_fast(
-            scene_d, lights_d, ambient_d, blended[dev], day_frac, rays_d,
-            sub, width, row0=c * sub, total_height=height,
-            chunk=chunk)[None])
-    return filter_bands(bases, torch.as_tensor(aa).reshape(1), mesh[0], sub,
-                        height)[0]
-
-
 def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
                          sky_h: int, sky_w: int, *, mesh, height: int,
                          width: int, aspect: float | None = None,
@@ -404,32 +293,47 @@ def render_frame_sharded(scene: Scene, state: FrameState, sky_packs: dict,
                          t_subs=None, path: str = "auto", sky_texels=None,
                          chunk: int = 32768) -> torch.Tensor:
     """Row-sharded render of one frame → (height, width, 3) uint8 on
-    mesh[0], equal bit for bit to the single-device frame of `path`.
+    mesh[0], equal bit for bit to the single-device frame of `path`: each
+    entry's rows rendered on its device, then gathered by place_bands.
 
-    path "auto" (the megakernel): sky_packs maps each device of mesh to its
-    copy of the static (4, H*W) sky stack (replicate), and the frame equals
-    render_frame_static_sky's. Paths "fast" and "oracle" blend the
-    panoramas per frame from sky_texels ((4, H, W, 3) uint8 on one device)
-    like render_frame and read neither sky_packs nor the cluster
-    arguments; both render the fast renderer in their bands.
-    fxaa_static overrides the state's FXAA toggle. interleave = k > 1 gives
-    each device k strided chunks instead of one contiguous band
-    (mesh.py:200-209)."""
+    path "auto" (the megakernel): the frame is packed once on the scene's
+    device and the packs copied to each entry's, which runs entry_bands;
+    sky_packs maps each device of mesh to its copy of the static (4, H*W)
+    sky stack (replicate), and the frame equals render_frame_static_sky's.
+    Paths "fast" and "oracle" run entry_bands_plain on each entry's device
+    (the early exits decided on the host), blending the panoramas from
+    sky_texels ((4, H, W, 3) uint8 on any device) like render_frame, and
+    read neither sky_packs nor the cluster arguments; both render the fast
+    renderer in their bands. fxaa_static overrides the state's FXAA toggle.
+    interleave = k > 1 gives each device k strided chunks instead of one
+    contiguous band (mesh.py:200-209)."""
     mesh = as_mesh(mesh)
-    band_rows(height, len(mesh), interleave)
-    aa = (state.aa if fxaa_static is None
-          else torch.tensor(bool(fxaa_static))).reshape(1)
+    n = len(mesh)
+    band_rows(height, n, interleave)
+    if fxaa_static is not None:
+        state = state._replace(aa=torch.tensor(bool(fxaa_static)))
     if path in PLAIN_RENDERERS:
-        return render_bands_plain(scene, state, sky_texels, mesh=mesh,
-                                  height=height, width=width, chunk=chunk,
-                                  aspect=aspect, aa=aa[0],
-                                  interleave=interleave)
-    if path != "auto":
+        def rows(entry, d):
+            return entry_bands_plain(
+                to_device(scene, d), state_to(state, d), sky_texels.to(d),
+                entry=entry, n=n, height=height, width=width, chunk=chunk,
+                aspect=aspect, interleave=interleave)
+    elif path == "auto":
+        coef, params, nt, ns, cull = frame_packs(scene, state, height, width,
+                                                 aspect, tri_clusters,
+                                                 sph_clusters, t_subs)
+
+        def rows(entry, d):
+            return entry_bands(coef[None].to(d), params[None].to(d), nt, ns,
+                               [state_to(state, d)], sky_packs[d], sky_h,
+                               sky_w, entry=entry, n=n, height=height,
+                               width=width, interleave=interleave,
+                               cull=cull.to(d))
+    else:
         raise ValueError(f"path must be 'auto', 'fast' or 'oracle', got "
                          f"{path!r}")
-    coef, params, nt, ns, cull = frame_packs(scene, state, height, width,
-                                             aspect, tri_clusters,
-                                             sph_clusters, t_subs)
-    return render_bands(coef[None], params[None], nt, ns, [state], sky_packs,
-                        sky_h, sky_w, mesh=mesh, height=height, width=width,
-                        interleave=interleave, aa=aa, cull=cull)[0]
+    frame = torch.empty((1, height, width, 3), dtype=torch.uint8,
+                        device=mesh[0])
+    for entry, d in enumerate(mesh):
+        place_bands(frame, rows(entry, d), entry, n)
+    return frame[0]

@@ -506,11 +506,11 @@ def test_render_script_dp_and_hybrid_match_sequence(dev):
 @pytest.mark.parametrize("kind", ["frame", "preview", "batch"])
 def test_sharded_graph_replay_equals_eager_and_single(dev, kind, interleave):
     """A sharded Engine on ["cuda:0"] * 4 over 60 frames (64 in batches of
-    8) with a preset change and an FXAA toggle: every call after the first
-    replays one CUDA graph per entry; each equals the exchanging eager step
-    (Engine._step_render: render_bands) from the same state and the
-    single-device graph Engine's call, frames and states bit for bit, and
-    every replica equals that state after every call."""
+    8) with a preset change and an FXAA toggle: the first call runs each
+    entry eagerly, every call after it replays one CUDA graph per entry;
+    each equals the single-device graph Engine's call from the same state,
+    frames and states bit for bit, and every replica equals that state
+    after every call."""
     k = 8 if kind == "batch" else 1
     kw = dict(preview=2 if kind == "preview" else 1,
               shard_interleave=interleave)
@@ -522,18 +522,15 @@ def test_sharded_graph_replay_equals_eager_and_single(dev, kind, interleave):
     call = {"frame": lambda e, a, d: e.step_and_frame(a[0], d[0]),
             "preview": lambda e, a, d: e.step_and_frame_preview(a[0], d[0]),
             "batch": lambda e, a, d: e.step_and_frame_batch(a, d)}[kind]
-    st = tsim.clone_state(eng.state)
     kept = []
     for i in range(0, n, k):
         a, d = acts[i:i + k], dts[i:i + k]
         got = call(eng, a, d)
-        st, want = eng._step_render(kind, st,
-                                    eng._upload(pack_actions(a, d)))
+        want = call(one, a, d)
         assert torch.equal(got, want), i
-        assert torch.equal(got, call(one, a, d)), i
-        assert states_equal(eng.state, st) and states_equal(one.state, st)
+        assert states_equal(eng.state, one.state), i
         for live in eng._replicas[tuple(eng.mesh)].live:
-            assert states_equal(live, st), i
+            assert states_equal(live, one.state), i
         kept.append((got, want.clone()))
     graphs = eng._replicas[tuple(eng.mesh)].graphs
     assert set(graphs) == {("bands", k)} and len(graphs["bands", k]) == 4
@@ -971,11 +968,10 @@ def test_frame_graph_equals_eager_frame(dev, aa):
 
 
 @pytest.mark.parametrize("interleave", [1, 2])
-def test_sharded_frame_graphs_equal_exchanging_reference(dev, interleave):
+def test_sharded_frame_graphs_equal_single_device_frame(dev, interleave):
     """A sharded Engine's frame() on ["cuda:0"] * 4: one CUDA graph per
-    entry (its rows of its replica, unstepped) against the exchanging
-    render_bands reference and the single-device frame, bit for bit,
-    before and after sharded step calls."""
+    entry (its rows of its replica, unstepped) against the single-device
+    Engine's frame, bit for bit, before and after sharded step calls."""
     eng = small_engine("cuda", sharded=["cuda:0"] * 4,
                        shard_interleave=interleave)
     one = small_engine("cuda")
@@ -985,7 +981,6 @@ def test_sharded_frame_graphs_equal_exchanging_reference(dev, interleave):
             e.set_state(make_state(**CASES[name]))
         for _ in range(2):
             img = eng.frame()
-            assert torch.equal(img, eng._frame_eager()), name
             assert torch.equal(img, one.frame()), name
         eng.step_and_frame(acts[i], 0.05)
         one.step_and_frame(acts[i], 0.05)
@@ -1112,12 +1107,11 @@ def test_plain_step_graphs_equal_eager_step(dev, path, kind, k, preview):
 
 
 @pytest.mark.parametrize("interleave", [1, 2])
-def test_sharded_fast_graphs_equal_exchange(dev, interleave):
+def test_sharded_fast_graphs_equal_single_device(dev, interleave):
     """A sharded `fast` Engine on ["cuda:0"] * 4: frame() and
     step_and_frame by one CUDA graph per entry (entry_bands_plain, early
-    exits masked) against the exchanging render_bands_plain reference and
-    the single-device `fast` Engine, bit for bit; kernel B's band form
-    once per chunk of a call."""
+    exits masked) against the single-device `fast` Engine, frames and
+    states bit for bit; kernel B's band form once per chunk of a call."""
     eng = small_engine("cuda", sharded=["cuda:0"] * 4, path="fast",
                        chunk=4096, shard_interleave=interleave)
     one = small_engine("cuda", path="fast", chunk=4096)
@@ -1126,18 +1120,14 @@ def test_sharded_fast_graphs_equal_exchange(dev, interleave):
         for e in (eng, one):
             e.set_state(make_state(**CASES[name]))
         img = eng.frame()
-        assert torch.equal(img, eng._frame_eager()), name
         assert torch.equal(img, one.frame()), name
         for a in acts[2 * i:2 * i + 2]:
-            st = eng.state
             before = fxaa.fxaa_ext.launches
             got = eng.step_and_frame(a, 0.05)
             torch.cuda.synchronize()
             assert fxaa.fxaa_ext.launches == before + 4 * interleave
-            new, want = eng._step_render(
-                "frame", st, eng._upload(pack_actions([a], [0.05])))
-            assert torch.equal(got, want) and states_equal(eng.state, new)
             assert torch.equal(got, one.step_and_frame(a, 0.05)), name
+            assert states_equal(eng.state, one.state), name
     graphs = eng._replicas[tuple(eng.mesh)].graphs
     assert len(graphs["render", 1]) == len(graphs["bands", 1]) == 4
 

@@ -7,8 +7,9 @@ versions (96x160, a 64x128 procedural sky):
     bit for bit (torch.equal), at golden states and with FXAA off; the
     state snapshot survives set_state → frame → step_and_frame → frame;
   - a sharded Engine's `frame()` on ["cpu"] * 4 (each entry renders its
-    rows of its replica, unstepped) against its exchanging reference and
-    the single-device frame, bit for bit, at interleave 1 and 2 (the width
+    rows of its replica, unstepped) against its `_frame_eager()` (the
+    single-device frame rendered eagerly on its device) and the
+    single-device Engine's frame, bit for bit, at interleave 1 and 2 (the width
     is a multiple of 16: ATen's vectorised CPU asin/atan2 round a tensor's
     scalar tail differently);
   - `fast_forward` (one `step()` call per vector) against stepping frame

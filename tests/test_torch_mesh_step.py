@@ -3,10 +3,10 @@ replica of the state and renders its rows with no exchange (meshes of
 ["cpu"] * n, plain kernels), as each entry's CUDA graph does on a card.
 
   - parallel.mesh.entry_bands (each chunk with its two halo rows
-    recomputed) gathered by place_bands against the exchanging
-    render_bands / filter_bands, bit for bit (torch.equal), for n in
-    {2, 4, 8} at interleave 2 (and n = 4 at 1), FXAA on and off, K = 1
-    and 3;
+    recomputed) gathered by place_bands against the single-device frames
+    of the same packs (frames_from_packs), bit for bit (torch.equal), for
+    n in {2, 4, 8} at interleave 2 (and n = 4 at 1), FXAA on and off,
+    K = 1 and 3;
   - a sharded Engine on ["cpu"] * 4 over 24 actions with a camera preset,
     FXAA toggles, set_state, fast_forward, a batch, a preview and resized:
     every frame equal to the unsharded Engine's bit for bit, and every
@@ -30,7 +30,8 @@ import torch
 from chip_smoke import states_equal, toggling_actions
 from raytracing_cuda_tpu_torch.app.loop import Engine
 from raytracing_cuda_tpu_torch.parallel import mesh as M
-from raytracing_cuda_tpu_torch.render.pipeline import batch_packs
+from raytracing_cuda_tpu_torch.render.pipeline import (batch_packs,
+                                                       frames_from_packs)
 from raytracing_cuda_tpu_torch.sim import state as tsim
 from raytracing_cuda_tpu_torch.sim.actions import Action
 from raytracing_cuda_tpu_torch.utils.config import RenderConfig
@@ -74,16 +75,14 @@ def packs(base_engine):
 @pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("aa", [True, False])
 @pytest.mark.parametrize("n,interleave", [(2, 2), (4, 2), (8, 2), (4, 1)])
-def test_entry_bands_equal_exchanged_bands(base_engine, packs, n, interleave,
-                                           aa, K):
+def test_entry_bands_equal_single_device_frames(base_engine, packs, n,
+                                                interleave, aa, K):
     eng = base_engine
     coefs, params, nt, ns, cull, states = packs
     states = [st._replace(aa=torch.tensor(aa)) for st in states[:K]]
     coefs, params = coefs[:K], params[:K]
-    sky = M.replicate(eng.sky_pack, ["cpu"])
-    want = M.render_bands(coefs, params, nt, ns, states, sky, eng.sky_h,
-                          eng.sky_w, mesh=["cpu"] * n, height=H, width=W,
-                          interleave=interleave, cull=cull)
+    want = frames_from_packs(coefs, params, nt, ns, eng.sky_pack, eng.sky_h,
+                             eng.sky_w, states, H, W, cull)
     got = torch.empty_like(want)
     sub = H // (n * interleave)
     for e in range(n):

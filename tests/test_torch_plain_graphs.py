@@ -26,9 +26,8 @@ capture, on the CPU (96x160, a 64x128 procedural sky):
   - a sharded `fast` frame by mesh entry (parallel/mesh.py
     entry_bands_plain, masked, each entry's rows with its halo rows
     recomputed, then place_bands) on ["cpu"] * 4 at interleave 1 and 2,
-    against the exchanging render_bands_plain and the single-device
-    frame, bit for bit, and a sharded Engine's calls against its eager
-    reference;
+    against the single-device frame, bit for bit, and a sharded Engine's
+    calls against the unsharded Engine's from the same state;
   - experiments/plain_graphs_torch.py, which measures those graphs on a
     card, refuses to run without one.
 
@@ -50,8 +49,7 @@ from raytracing_cuda_tpu_torch import interop
 from raytracing_cuda_tpu_torch.app.loop import Engine, _box_downsample
 from raytracing_cuda_tpu_torch.core.math3d import true_div
 from raytracing_cuda_tpu_torch.parallel.mesh import (entry_bands_plain,
-                                                     place_bands,
-                                                     render_bands_plain)
+                                                     place_bands)
 from raytracing_cuda_tpu_torch.render import reference
 from raytracing_cuda_tpu_torch.render.fast import render_base_image_fast
 from raytracing_cuda_tpu_torch.render.pipeline import pack_actions
@@ -268,9 +266,8 @@ def test_masked_entry_bands_equal_exchange_and_single(single_fast,
                                                       interleave):
     """Each of 4 mesh entries renders its chunks with their halo rows,
     early exits masked (entry_bands_plain), place_bands gathers them; the
-    frame equals render_bands_plain and the single-device frame."""
+    frame equals the single-device frame."""
     eng, st, ref = single_fast
-    mesh = ["cpu"] * 4
     frame = torch.empty((1, H, W, 3), dtype=torch.uint8)
     for e in range(4):
         rows = entry_bands_plain(eng.scene, st, eng.sky_texels, entry=e, n=4,
@@ -278,10 +275,6 @@ def test_masked_entry_bands_equal_exchange_and_single(single_fast,
                                  interleave=interleave, early_exit=False)
         assert rows.shape == (1, interleave, H // (4 * interleave), W, 3)
         place_bands(frame, rows, e, 4)
-    exchanged = render_bands_plain(eng.scene, st, eng.sky_texels, mesh=mesh,
-                                   height=H, width=W, chunk=CHUNK, aa=st.aa,
-                                   interleave=interleave)
-    assert torch.equal(frame[0], exchanged)
     assert torch.equal(frame[0], ref)
 
 
@@ -289,8 +282,8 @@ def test_masked_entry_bands_equal_exchange_and_single(single_fast,
 def test_sharded_fast_engine_calls_equal_eager_reference(single_fast,
                                                          interleave):
     """A sharded `fast` Engine on ["cpu"] * 4: frame() and step_and_frame
-    through its entries against its exchanging _frame_eager() and
-    _step_render, and the single-device Engine."""
+    through its entries against the single-device `fast` Engine's calls
+    from the same state."""
     one, st, ref = single_fast
     eng = engine(sharded=["cpu"] * 4, path="fast",
                  shard_interleave=interleave)
@@ -298,10 +291,11 @@ def test_sharded_fast_engine_calls_equal_eager_reference(single_fast,
     assert torch.equal(eng.frame(), ref)
     act = random_actions(1, seed=62)[0]
     got = eng.step_and_frame(act, DT)
-    new, want = eng._step_render("frame", st, eng._upload(
-        pack_actions([act], [DT])))
-    assert torch.equal(got, want) and states_equal(eng.state, new)
-    assert torch.equal(eng.frame(), eng._frame_eager())
+    one.set_state(st)
+    want = one.step_and_frame(act, DT)
+    assert torch.equal(got, want) and states_equal(eng.state, one.state)
+    assert torch.equal(eng.frame(), one.frame())
+    one.set_state(st)
     assert set(eng._replicas[tuple(eng.mesh)].warm) == {("render", 1),
                                                          ("bands", 1)}
 
